@@ -1,0 +1,211 @@
+"""Public wrappers of the scheduler scoring kernels.
+
+Counterpart of `repro.kernels.sched_score.ops`.  Each wrapper checks
+device, dtype, shape and contiguity, then dispatches on where its
+tensors lie:
+
+* on CUDA it launches the hand kernel from `sched_score.cu` on the
+  current stream (outputs and scratch allocated here with
+  `torch.empty`), raises if the launch reports an error, and adds one
+  to its count in `LAUNCHES`;
+* on the CPU it calls the plain version in `ref.py`;
+* anywhere else it raises.
+
+No path falls back: a build or launch failure is an exception.  The
+reference's padding of the queue to a multiple of 128 lanes is a TPU
+tiling need; the CUDA kernels mask their ragged edge themselves.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.sched_score import ref
+
+TILE = 2048   # lanes per block of the top-b passes (sched_score.cu TILE)
+BMAX = 128    # largest b, as in the reference
+WMAX = 4096   # largest slot pool of sched_compact_topb
+
+LAUNCHES = {"sched_score_topb": 0, "sched_score_argmax": 0,
+            "sched_compact_topb": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "sched_score_topb": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "sched_score_argmax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "sched_compact_topb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                           _P, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_LIB: ctypes.CDLL | None = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The built library with its C signatures bound (once)."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("sched_score")
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.sched_score_tile.argtypes = []
+        lib.sched_score_tile.restype = ctypes.c_int
+        if lib.sched_score_tile() != TILE:
+            raise RuntimeError("sched_score.cu TILE disagrees with ops.TILE")
+        _LIB = lib
+    return _LIB
+
+
+def _check_rc(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def _check(name, tensors, dtypes, n):
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
+        if t.shape != (n,):
+            raise ValueError(f"{name}: expected shape ({n},), got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _check_weights(name, weights, route, dev):
+    nf = 4 if route is None else 5
+    if weights.shape != (nf,) or weights.dtype != torch.float32:
+        raise ValueError(f"{name}: weights must be ({nf},) float32, got "
+                         f"{tuple(weights.shape)} {weights.dtype}")
+    if weights.device != dev or not weights.is_contiguous():
+        raise ValueError(f"{name}: weights must be contiguous on {dev}")
+
+
+def _features(name, wait, cost, urgency, mask, weights, route):
+    n = wait.shape[0]
+    ts = [wait, cost, urgency, mask] + ([] if route is None else [route])
+    dts = [torch.float32] * 3 + [torch.bool] + (
+        [] if route is None else [torch.float32])
+    dev = _check(name, ts, dts, n)
+    _check_weights(name, weights, route, dev)
+    return n, dev
+
+
+def _scratch(n: int, b: int, dev):
+    a = -(-n // TILE) * b
+    bsz = max(1, -(-a // TILE) * b)
+    return (torch.empty((a,), dtype=torch.int64, device=dev),
+            torch.empty((bsz,), dtype=torch.int64, device=dev))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def sched_score_topb(wait, cost, urgency, mask, weights, b: int, route=None):
+    """Fused score + top-b over a queue of any length n >= 1.
+
+    wait/cost/urgency (and route): (n,) float32; mask: (n,) bool;
+    weights: (4,) [w_wait, w_size, w_urg, ref_tokens], or (5,) with
+    w_route when `route` is given.  Returns (idx (b,) int32, score (b,)
+    float32) best first, ties to the lowest index; b is cut to n."""
+    n, dev = _features("sched_score_topb", wait, cost, urgency, mask,
+                       weights, route)
+    b = min(int(b), n)
+    if not 1 <= b <= BMAX:
+        raise ValueError(f"sched_score_topb: need 1 <= b <= {BMAX}, got {b}")
+    if dev.type == "cpu":
+        return ref.sched_score_topb_ref(wait, cost, urgency, mask, weights, b,
+                                        route)
+    lib = _lib()
+    idx = torch.empty((b,), dtype=torch.int32, device=dev)
+    score = torch.empty((b,), dtype=torch.float32, device=dev)
+    sa, sb = _scratch(n, b, dev)
+    rc = lib.sched_score_topb(
+        _ptr(wait), _ptr(cost), _ptr(urgency), _ptr(route), _ptr(mask),
+        _ptr(weights), n, b, _ptr(sa), _ptr(sb), _ptr(idx), _ptr(score),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(lib, rc, "sched_score_topb")
+    LAUNCHES["sched_score_topb"] += 1
+    return idx, score
+
+
+def sched_score_argmax(wait, cost, urgency, mask, weights, route=None):
+    """Fused score + masked argmax (first occurrence).  Returns
+    (idx () int32, score () float32)."""
+    n, dev = _features("sched_score_argmax", wait, cost, urgency, mask,
+                       weights, route)
+    if dev.type == "cpu":
+        return ref.sched_score_argmax_ref(wait, cost, urgency, mask, weights,
+                                          route)
+    lib = _lib()
+    idx = torch.empty((), dtype=torch.int32, device=dev)
+    score = torch.empty((), dtype=torch.float32, device=dev)
+    sa, sb = _scratch(n, 1, dev)
+    rc = lib.sched_score_argmax(
+        _ptr(wait), _ptr(cost), _ptr(urgency), _ptr(route), _ptr(mask),
+        _ptr(weights), n, _ptr(sa), _ptr(sb), _ptr(idx), _ptr(score),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(lib, rc, "sched_score_argmax")
+    LAUNCHES["sched_score_argmax"] += 1
+    return idx, score
+
+
+def sched_compact_topb(slot_req, alive, wait, cost, urgency, weights, b: int,
+                       route=None):
+    """Fused stable compaction + score + top-b over a slot pool of width
+    1 <= w <= 4096.
+
+    slot_req: (w,) int32 request ids in slot order; alive: (w,) bool;
+    wait/cost/urgency (and route): (w,) float32 per slot, pre-compaction.
+    Returns (compacted (w,) int32 with -1 tail, n_live () int32, idx
+    (b,) int32 in compacted coordinates, score (b,) float32); ranks at
+    or past n_live are (rank, NEG)."""
+    w = slot_req.shape[0]
+    ts = [slot_req, alive, wait, cost, urgency] + (
+        [] if route is None else [route])
+    dts = [torch.int32, torch.bool] + [torch.float32] * (
+        3 if route is None else 4)
+    dev = _check("sched_compact_topb", ts, dts, w)
+    _check_weights("sched_compact_topb", weights, route, dev)
+    b = min(int(b), w)
+    if not 1 <= b <= BMAX:
+        raise ValueError(f"sched_compact_topb: need 1 <= b <= {BMAX}, "
+                         f"got {b}")
+    if w > WMAX:
+        raise ValueError(f"sched_compact_topb: slot pool of {w} exceeds "
+                         f"the one-CTA limit {WMAX}")
+    if dev.type == "cpu":
+        return ref.sched_compact_topb_ref(slot_req, alive, wait, cost,
+                                          urgency, weights, b, route)
+    lib = _lib()
+    out_req = torch.empty((w,), dtype=torch.int32, device=dev)
+    n_live = torch.empty((), dtype=torch.int32, device=dev)
+    idx = torch.empty((b,), dtype=torch.int32, device=dev)
+    score = torch.empty((b,), dtype=torch.float32, device=dev)
+    rc = lib.sched_compact_topb(
+        _ptr(slot_req), _ptr(alive), _ptr(wait), _ptr(cost), _ptr(urgency),
+        _ptr(route), _ptr(weights), w, b, _ptr(out_req), _ptr(n_live),
+        _ptr(idx), _ptr(score), torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(lib, rc, "sched_compact_topb")
+    LAUNCHES["sched_compact_topb"] += 1
+    return out_req, n_live, idx, score

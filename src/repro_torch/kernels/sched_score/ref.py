@@ -1,0 +1,79 @@
+"""Plain PyTorch versions of the three scheduler scoring kernels.
+
+Counterparts of `repro.kernels.sched_score.ref`'s oracles, written to
+give the same bits as the CUDA kernels in `sched_score.cu`:
+
+* the score is `((w1*(wait/c) - w2*(c/ref)) + w3*urg) - w_route*route`
+  with `c = max(cost, 1)`, one IEEE-rounded operation at a time (eager
+  PyTorch fuses nothing, and the kernel is built with `-fmad=false`);
+* masked lanes score NEG = -1e30, as in the kernel (the reference's jnp
+  ordering path uses -inf for masked FIFO lanes instead);
+* -0.0 is returned as +0.0, because the kernel ranks ±0 as one value
+  and returns the canonical one;
+* ranking is a stable descending sort: ties go to the lowest index,
+  `lax.top_k`'s first-occurrence order.
+
+`ops.py` calls these for tensors on the CPU; the tests and
+`chip_smoke.py` hold the kernels against them.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30
+
+
+def scores_ref(wait, cost, urgency, mask, weights, route=None):
+    """Masked paper score per lane (NEG where `mask` is False)."""
+    c = torch.clamp(cost, min=1.0)
+    score = weights[0] * (wait / c) - weights[1] * (c / weights[3])
+    score = score + weights[2] * urgency
+    if route is not None:
+        score = score - weights[4] * route
+    score = torch.where(mask, score, NEG)
+    return torch.where(score == 0, 0.0, score)
+
+
+def _rank(score, b: int):
+    order = torch.sort(score, descending=True, stable=True).indices[:b]
+    return order.to(torch.int32), score[order]
+
+
+def sched_score_topb_ref(wait, cost, urgency, mask, weights, b: int,
+                         route=None):
+    """Top-b `(idx (b,) int32, score (b,) float32)`, best first."""
+    return _rank(scores_ref(wait, cost, urgency, mask, weights, route), b)
+
+
+def sched_score_argmax_ref(wait, cost, urgency, mask, weights, route=None):
+    """Masked argmax, first occurrence: `(idx () int32, score ())`."""
+    score = scores_ref(wait, cost, urgency, mask, weights, route)
+    i = torch.argmax(score)
+    return i.to(torch.int32), score[i]
+
+
+def _compact(values, target, fill, w: int):
+    out = torch.full((w + 1,), fill, dtype=values.dtype, device=values.device)
+    out[target] = values  # dead slots all land on the spare slot w
+    return out[:w]
+
+
+def sched_compact_topb_ref(slot_req, alive, wait, cost, urgency, weights,
+                           b: int, route=None):
+    """Stable compaction of the slot pool, then the top-b ranking over
+    the compacted pool with mask = index < n_live.  Returns (compacted
+    (w,) int32 with -1 tail, n_live () int32, idx (b,) int32 in
+    compacted coordinates, score (b,) float32)."""
+    w = slot_req.shape[0]
+    pos = torch.cumsum(alive, 0, dtype=torch.int32) - 1
+    target = torch.where(alive, pos, w).long()
+    creq = _compact(slot_req.to(torch.int32), target, -1, w)
+    cwait = _compact(wait, target, 0.0, w)
+    ccost = _compact(cost, target, 1.0, w)
+    curg = _compact(urgency, target, 0.0, w)
+    croute = None if route is None else _compact(route, target, 0.0, w)
+    n_live = alive.sum(dtype=torch.int32)
+    mask = torch.arange(w, device=alive.device) < n_live
+    idx, score = sched_score_topb_ref(cwait, ccost, curg, mask, weights, b,
+                                      croute)
+    return creq, n_live, idx, score

@@ -1,0 +1,161 @@
+"""Workload generation (paper §4.2, §4.4, §4.10), stationary path.
+
+Counterpart of `repro.sim.workload`: one `RequestBatch` per seed with
+Poisson arrivals whose rate encodes the congestion level, the bucket
+mix of the regime, log-uniform output tokens within each bucket, a
+service class per request (`paper2`, `bucket4` or `tenant<K>`), priors
+at one of the information-ladder levels, and optional predictor noise.
+
+The port draws its own numbers from a `torch.Generator` (on the
+generator's device, by default the CPU, so a run on the CPU and a run
+on CUDA see the same batch), then moves the batch to `device`.  The
+draws differ from `jax.random`'s, so this generator matches the
+reference only in distribution; parity tests feed the reference's
+`(batch, jitter)` through `repro_torch.bridge` instead.  Nonstationary
+arrival schedules are not part of this package yet (ROADMAP queue A).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.types import CLS_HEAVY, CLS_INTERACTIVE, SHORT, RequestBatch
+from repro_torch.device import resolve_device, to_device
+
+# bucket -> (token_low, token_high)
+BUCKET_TOKENS = torch.tensor(
+    [[16.0, 64.0], [65.0, 256.0], [257.0, 1024.0], [1025.0, 4096.0]],
+    dtype=torch.float32)
+
+# per-bucket deadline budgets (ms)
+DEADLINE_BUDGET_MS = torch.tensor([3600.0, 11000.0, 35000.0, 100000.0],
+                                  dtype=torch.float32)
+
+MIXES = {
+    "balanced": (0.50, 0.25, 0.15, 0.10),
+    "heavy": (0.20, 0.20, 0.30, 0.30),
+    "heavy70": (0.20, 0.10, 0.40, 0.30),
+    "sharegpt": (0.12, 0.42, 0.455, 0.005),
+}
+
+# offered load as a multiple of the provider's comfortable capacity
+CONGESTION_MULT = {"medium": 0.85, "high": 1.2}
+
+# mean tokens per mix (log-uniform within buckets)
+_MEAN_TOKENS = {
+    "balanced": 357.0,
+    "heavy": 866.0,
+    "heavy70": 908.0,
+    "sharegpt": 326.0,
+}
+
+REGIMES = [
+    ("balanced", "medium"),
+    ("balanced", "high"),
+    ("heavy", "medium"),
+    ("heavy", "high"),
+]
+
+NEUTRAL_P50 = 300.0  # neutral prior for no_info / class_only conditions
+NEUTRAL_P90 = 700.0
+
+
+def arrival_rate(mix: str, congestion: str,
+                 base_ms: float = 90.0, ms_per_token: float = 6.5,
+                 comfort: float = 4.0) -> float:
+    mean_service_s = (base_ms + ms_per_token * _MEAN_TOKENS[mix]) / 1000.0
+    return CONGESTION_MULT[congestion] * comfort / mean_service_s
+
+
+class WorkloadConfig(NamedTuple):
+    n_requests: int = 192
+    mix: str = "balanced"
+    congestion: str = "medium"
+    information: str = "coarse"   # no_info | class_only | coarse | oracle
+    predictor_noise: float = 0.0  # L in paper §4.10
+    coarse_rel_err: float = 0.25  # intrinsic coarseness of the predictor
+    arrival_scale: float = 1.0    # multiplies the arrival rate
+    class_map: str = "paper2"     # lane scheme: paper2 | bucket4 | tenant<K>
+
+
+def n_classes_of(class_map: str) -> int:
+    """Static class count implied by a lane scheme."""
+    if class_map == "paper2":
+        return 2
+    if class_map == "bucket4":
+        return 4
+    if class_map.startswith("tenant"):
+        suffix = class_map[len("tenant"):]
+        if not suffix.isdigit() or int(suffix) < 1:
+            raise ValueError(
+                f"tenant scheme must be 'tenant<K>' with K >= 1 "
+                f"(e.g. 'tenant8'), got {class_map!r}")
+        return int(suffix)
+    raise ValueError(f"unknown class_map: {class_map!r}")
+
+
+def _uniform(n, lo, hi, g):
+    return lo + (hi - lo) * torch.rand((n,), generator=g, device=g.device)
+
+
+def generate(cfg: WorkloadConfig, generator: torch.Generator | None = None,
+             *, device="cuda") -> tuple[RequestBatch, torch.Tensor]:
+    """Returns (batch, jitter) on `device`; jitter is the provider-side
+    noise vector.  Arrivals come out sorted (the windowed engine relies
+    on it)."""
+    dev = resolve_device(device)
+    g = torch.Generator().manual_seed(0) if generator is None else generator
+    gdev = g.device
+    n = cfg.n_requests
+    rate = arrival_rate(cfg.mix, cfg.congestion) * cfg.arrival_scale
+    gaps = torch.empty((n,), device=gdev).exponential_(generator=g)
+    arrival = torch.cumsum(gaps * (1000.0 / rate), 0)
+
+    mix = torch.tensor(MIXES[cfg.mix], dtype=torch.float32, device=gdev)
+    bucket = torch.multinomial(mix, n, replacement=True, generator=g).to(
+        torch.int32)
+    bt = BUCKET_TOKENS.to(gdev)
+    lo = bt[bucket.long(), 0]
+    hi = bt[bucket.long(), 1]
+    u = torch.rand((n,), generator=g, device=gdev)
+    true_tokens = torch.exp(torch.log(lo) + u * (torch.log(hi) - torch.log(lo)))
+
+    if cfg.information == "oracle":
+        p50 = p90 = true_tokens
+    elif cfg.information == "coarse":
+        rel = cfg.coarse_rel_err
+        p50 = true_tokens * _uniform(n, 1.0 - rel, 1.0 + rel, g)
+        p90 = p50 * 1.8
+    elif cfg.information in ("class_only", "no_info"):
+        p50 = torch.full((n,), NEUTRAL_P50, device=gdev)
+        p90 = torch.full((n,), NEUTRAL_P90, device=gdev)
+    else:
+        raise ValueError(f"unknown information level {cfg.information}")
+
+    if cfg.predictor_noise > 0:
+        f = _uniform(n, 1.0 - cfg.predictor_noise, 1.0 + cfg.predictor_noise,
+                     g)
+        p50, p90 = p50 * f, p90 * f
+
+    if cfg.class_map == "paper2":
+        cls = torch.where(bucket == SHORT, CLS_INTERACTIVE, CLS_HEAVY)
+    elif cfg.class_map == "bucket4":
+        cls = bucket
+    else:
+        cls = torch.randint(0, n_classes_of(cfg.class_map), (n,),
+                            generator=g, device=gdev)
+    jitter = _uniform(n, 0.95, 1.05, g)
+
+    batch = RequestBatch(
+        arrival_ms=arrival.float(),
+        bucket=bucket,
+        cls=cls.to(torch.int32),
+        true_tokens=true_tokens.float(),
+        p50=p50.float(),
+        p90=p90.float(),
+        deadline_budget_ms=DEADLINE_BUDGET_MS.to(gdev)[bucket.long()],
+        valid=torch.ones((n,), dtype=torch.bool, device=gdev),
+    )
+    return to_device(batch, dev), jitter.to(dev)
+
