@@ -6,22 +6,24 @@
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit.  It builds the hand kernels from the checkout's sources,
 holds each against its plain PyTorch version on the card, drives the
-port's main path — the windowed scheduler simulator, whose ordering
-layer ranks every class through `sched_score_topb` — and checks what
-comes out.  Each phase prints one JSON line; any failure raises and the
-script exits non-zero.  The last lines are the card (as nvidia-smi
-reports it), one JSON line of kernel measurements, and the result line
+port's two main paths and checks what comes out: the windowed scheduler
+simulator, whose ordering layer ranks every class through
+`sched_score_topb`, and the serving engine, whose prefill runs
+`flash_attention` and whose every decode step runs `decode_attention`.
+Each phase prints one JSON line; any failure raises and the script
+exits non-zero.  The last lines are the card (as nvidia-smi reports
+it), one JSON line of kernel measurements, and the result line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
 Phases:
   1. device: the card's name and power limit;
-  2. build: nvcc of every kernel source;
-  3. kernels: each kernel against its plain version on the card, exact
-     equality of indices and score bits, over the main path's shapes
-     and edge cases; times (CUDA events, median of 60 calls after
-     warm-up) of the kernel, its plain version and the nearest single
-     PyTorch call;
+  2. build: nvcc of every kernel source, all started together;
+  3. kernels: each scheduler kernel against its plain version on the
+     card, exact equality of indices and score bits, over the main
+     path's shapes and edge cases; times (CUDA events, median of 60
+     calls after warm-up) of the kernel, its plain version and the
+     nearest single PyTorch call;
   4. paper cell: `run_cell` on the card and on the CPU with the same
      inputs — equal decision traces, equal terminal statuses, metrics
      within the tests' tolerance;
@@ -30,10 +32,25 @@ Phases:
      accounted for on every tick and after the drain, `sched_compact_topb`
      held against its plain version on the run's own slot pool at
      mid-run, and a window of ticks traced with `torch.profiler` for the
-     device's busy time and idle share.
+     device's busy time and idle share;
+  6. attention_kernels: `flash_attention` and `decode_attention` against
+     their plain versions on the card at StableLM-2-1.6B's geometry
+     (H = KV = 32, hd = 64, bf16) and StarCoder2-3B's (H = 24, KV = 2,
+     hd = 128, windows 64 and 4096), plus a float32 case each; times of
+     the kernel, its plain version and
+     `torch.nn.functional.scaled_dot_product_attention` (the library
+     yardstick, never called by the port), beside the bound;
+  7. serve: `stablelm-1.6b` at full width in bf16 with seeded random
+     weights answers 6 requests through `BlackBoxProvider.submit` and
+     one batch of 4 through `generate` (greedy, max_seq 2048); the
+     launch counts must be 24 a prompt and 24 a decode step; prefill
+     and teacher-forced decode logits on the kernels are held against
+     the plain versions on the card; prefill and decode times, tokens/s
+     and peak memory are reported.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -44,6 +61,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12   # H100 SXM float32, outside the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 REPS = 60
 
 
@@ -64,6 +82,9 @@ def main() -> None:
 
     check(torch.cuda.is_available(), "CUDA is not available")
     dev = torch.device("cuda")
+    # float32 products in full float32 on the card, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # --- 1. device -------------------------------------------------------
     smi = subprocess.run(
@@ -79,19 +100,23 @@ def main() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    libs = {name: _build.build(name) for name in _build.SOURCES}
+    libs = _build.build_all()
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
 
     kernels = phase_kernels(torch, dev)
     cell_launches = phase_paper_cell(torch, dev)
     scale = phase_scale(torch, dev, kernels)
+    kernels.update(phase_attention_kernels(torch, dev))
+    served = phase_serve(torch, dev, kernels)
 
     print(smi, flush=True)
     emit(kernels=[kernels[k] for k in
                   ("sched_score_topb", "sched_score_argmax",
-                   "sched_compact_topb")])
-    check(cell_launches > 0 and scale > 0, "main path launched no kernel")
+                   "sched_compact_topb", "flash_attention",
+                   "decode_attention")])
+    check(cell_launches > 0 and scale > 0 and served > 0,
+          "main path launched no kernel")
     emit(ok=True, device={"platform": "gpu", "kind": kind,
                           "count": torch.cuda.device_count()})
 
@@ -120,9 +145,9 @@ def device_ms(torch, fn, reps=REPS):
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, peak_ops=PEAK_F32_OPS_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -466,6 +491,427 @@ def phase_scale(torch, dev, kernels):
          traced_top_device_us_per_tick=[
              [name[:60], us / TRACE_TICKS] for name, us in top])
     return launches["sched_score_topb"]
+
+
+# ---------------------------------------------------------------------------
+# 6. the attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {"bfloat16": 3e-2, "float32": 3e-5}   # atol = rtol, as the CPU tests
+FA_SRC = "src/repro_torch/kernels/flash_attention/flash_attention.cu"
+DA_SRC = "src/repro_torch/kernels/decode_attention/decode_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:78"
+DA_REPLACES = "src/repro/kernels/decode_attention/decode_attention.py:66"
+# the kernels line carries the serve run's shapes: a 1024-token prompt,
+# and a decode step halfway through the 2048-slot cache
+FA_LINE = ("stablelm", 1024, 0)
+DA_LINE = ("stablelm", 2048, 1024)
+# flash: (geometry, Sq, window, dtype), Skv = Sq, B = 1
+FLASH_CASES = ([("stablelm", s, 0, "bfloat16") for s in (1, 37, 512, 1024, 2048)]
+               + [("starcoder2", 2048, 64, "bfloat16"),
+                  ("starcoder2", 2048, 4096, "bfloat16"),
+                  ("starcoder2", 5000, 4096, "bfloat16"),
+                  ("stablelm", 512, 0, "float32"),
+                  ("starcoder2", 700, 64, "float32")])
+# decode: (geometry, B, S, valid prefix length or "ring", dtype)
+DECODE_CASES = ([("stablelm", 1, s, n, "bfloat16")
+                 for s in (128, 1000, 2048) for n in (1, s // 2, s)]
+                + [("stablelm", 4, 2048, 300, "bfloat16"),
+                   ("starcoder2", 1, 64, 64, "bfloat16"),
+                   ("starcoder2", 1, 4096, 4096, "bfloat16"),
+                   ("starcoder2", 1, 4096, "ring", "bfloat16"),
+                   ("stablelm", 1, 2048, 1024, "float32"),
+                   ("starcoder2", 2, 1000, 999, "float32")])
+
+
+def attn_close(torch, got, want, dtype):
+    """Max abs error, and whether |got - want| <= tol * (1 + |want|)."""
+    tol = ATTN_TOL[dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool((err <= tol + tol * w.abs()).all()) and bool(
+        torch.isfinite(g).all())
+    return float(err.max()), ok
+
+
+def flash_pairs(S, window):
+    """Valid (query, key) pairs of causal attention over S positions."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def phase_attention_kernels(torch, dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    geo = {"stablelm": (32, 32, 64), "starcoder2": (24, 2, 128)}
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dts[dtype])
+
+    rows, err = [], {"flash_attention": 0.0, "decode_attention": 0.0}
+    line = {}
+
+    def record(name, case, got, want, dtype, **timing):
+        e, ok = attn_close(torch, got, want, dtype)
+        check(ok, f"{name} {case}: differs from its plain version "
+                  f"(max abs err {e})")
+        err[name] = max(err[name], e)
+        row = dict(name=name, **case, max_abs_err=e, **timing)
+        rows.append(row)
+        return row
+
+    for g, S, window, dtype in FLASH_CASES:
+        H, KV, hd = geo[g]
+        q = rand((1, S, H, hd), dtype)
+        k, v = rand((1, S, KV, hd), dtype), rand((1, S, KV, hd), dtype)
+        case = dict(geometry=g, B=1, Sq=S, H=H, KV=KV, hd=hd,
+                    window=window, dtype=dtype)
+        got = fa.flash_attention(q, k, v, window=window)
+        want = fa_ref.flash_attention_ref(q, k, v, window=window)
+        timed = dtype == "bfloat16"
+        timing = {}
+        if timed:
+            elt = 2
+            n_bytes = 2 * S * H * hd * elt + 2 * S * KV * hd * elt
+            n_ops = 4 * hd * H * flash_pairs(S, window)
+            t_b, by = bound(n_bytes, n_ops, PEAK_BF16_OPS_PER_S)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            if window > 0 and window < S:
+                mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+                mask &= ~torch.ones(S, S, dtype=torch.bool,
+                                    device=dev).tril(-window)
+
+                def lib():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
+            else:
+                def lib():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+            lib_err = float((lib().transpose(1, 2).float()
+                             - want.float()).abs().max())
+            timing = dict(
+                ms=device_ms(torch, lambda: fa.flash_attention(
+                    q, k, v, window=window)),
+                plain_ms=device_ms(torch, lambda: fa_ref.flash_attention_ref(
+                    q, k, v, window=window), reps=10),
+                library_ms=device_ms(torch, lib), library_max_abs_err=lib_err,
+                bound_ms=t_b, bound_by=by)
+        row = record("flash_attention", case, got, want, dtype, **timing)
+        if (g, S, window) == FA_LINE and timed:
+            line["flash_attention"] = row
+
+    for g, B, S, n, dtype in DECODE_CASES:
+        H, KV, hd = geo[g]
+        q = rand((B, H, hd), dtype)
+        k, v = rand((B, S, KV, hd), dtype), rand((B, S, KV, hd), dtype)
+        if n == "ring":   # a ring cache mid-wrap: every third slot stale
+            valid = (torch.arange(S, device=dev) % 3) != 1
+        else:
+            valid = torch.arange(S, device=dev) < n
+        n_valid = int(valid.sum())
+        case = dict(geometry=g, B=B, S=S, H=H, KV=KV, hd=hd,
+                    n_valid=n_valid, dtype=dtype)
+        got = da.decode_attention(q, k, v, valid)
+        want = da_ref.decode_attention_ref(q, k, v, valid)
+        timed = dtype == "bfloat16"
+        timing = {}
+        if timed:
+            elt = 2
+            n_bytes = (2 * B * H * hd * elt + 2 * B * n_valid * KV * hd * elt
+                       + S)
+            t_b, by = bound(n_bytes, 4 * B * H * hd * n_valid,
+                            PEAK_BF16_OPS_PER_S)
+            qt = q[:, :, None, :]
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            mask = valid[None, None, None, :]
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
+            lib_err = float((lib()[:, :, 0].float()
+                             - want.float()).abs().max())
+            timing = dict(
+                ms=device_ms(torch, lambda: da.decode_attention(
+                    q, k, v, valid)),
+                plain_ms=device_ms(torch, lambda: da_ref.decode_attention_ref(
+                    q, k, v, valid), reps=20),
+                library_ms=device_ms(torch, lib), library_max_abs_err=lib_err,
+                bound_ms=t_b, bound_by=by)
+        row = record("decode_attention", case, got, want, dtype, **timing)
+        if (g, S, n, B) == (*DA_LINE, 1) and timed:
+            line["decode_attention"] = row
+    torch.cuda.synchronize()
+    for row in rows:
+        emit(phase="attention_kernel", **row)
+    emit(phase="attention_kernels", cases=len(rows),
+         max_abs_err=err, tolerance=ATTN_TOL)
+    out = {}
+    for name, src, rep in (("flash_attention", FA_SRC, FA_REPLACES),
+                           ("decode_attention", DA_SRC, DA_REPLACES)):
+        row = line[name]
+        out[name] = dict(
+            name=name, route="cuda", source=src, replaces=rep, launches=0,
+            max_abs_err=err[name], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7. the serving path at full width
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "stablelm-1.6b"
+SERVE_PROMPTS = (8, 37, 128, 300, 512, 1024)   # tokens, one request each
+SERVE_BATCH = (4, 256, 16)                      # B, prompt tokens, max_new
+# kernels against plain versions inside the 24-layer model.  In float32
+# the two differ only in the order of the attention sums (1e-6 on the
+# kernels' outputs), so logits of order 1 must agree within 1e-3.  In
+# bf16 each one-ulp difference of an attention output is carried on
+# through the later layers' bf16 roundings, so the two paths differ by
+# bf16 rounding noise.  The bounds there rest on the run's own noise
+# floor f, the largest gap between the plain bf16 logits and float32
+# arithmetic on the same weights.  The kernels' bf16 logits must lie
+# within 2 f of the plain bf16 logits (as two bf16 paths that each sit
+# within f of float32 would), and within SERVE_BF16_F32_RATIO * f of
+# float32: as close to float32 as the plain bf16 path, up to that
+# ratio.  On an H100 the ratio read 1.084 (prefill) and 1.147 (decode),
+# the largest over the run's seven prompts (PERF.md section 6); it is
+# held at 1.5.
+SERVE_F32_TOL = 1e-3
+SERVE_BF16_F32_RATIO = 1.5
+
+
+def phase_serve(torch, dev, kernels):
+    import numpy as np
+
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import Model, decode_step, init_model, prefill
+    from repro_torch.serving import BlackBoxProvider, generate
+    from repro_torch.sim.workload import BUCKET_TOKENS
+
+    cfg = get(SERVE_ARCH)
+    sc = ServeConfig(max_seq=2048)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+
+    rng = np.random.default_rng(0)
+    buckets = [0, 1, 2, 3, 2, 3]
+    requests = []
+    for S, bucket in zip(SERVE_PROMPTS, buckets):
+        lo, hi = BUCKET_TOKENS[bucket].tolist()
+        # scaled down 64x as the reference's launcher scales them,
+        # held between 8 and 64 tokens
+        max_new = int(np.clip(int(rng.uniform(lo, hi) / 64), 8, 64))
+        requests.append((rng.integers(0, cfg.vocab, size=S, dtype=np.int32),
+                         max_new))
+    B, S_b, new_b = SERVE_BATCH
+    batch = rng.integers(0, cfg.vocab, size=(B, S_b), dtype=np.int32)
+    provider = BlackBoxProvider(model, sc, device=dev)
+
+    # one short answer first, so that the counted run's times do not
+    # carry the first calls' set-up (cuBLAS handles, library loading)
+    provider.submit(requests[0][0], 2)
+
+    # the main path, counted
+    fa.reset_launches()
+    da.reset_launches()
+    torch.cuda.synchronize()
+    answers, submit_s = [], []
+    for prompt, max_new in requests:
+        t0 = time.perf_counter()
+        answers.append(provider.submit(prompt, max_new))
+        submit_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    batch_out = generate(model, sc, batch, new_b, device=dev).cpu().numpy()
+    batch_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "decode_attention": da.LAUNCHES["decode_attention"]}
+    n_prompts = len(requests) + 1
+    n_steps = sum(m - 1 for _, m in requests) + new_b - 1
+    L = cfg.n_layers
+    check(launches["flash_attention"] == L * n_prompts,
+          f"serve: {launches['flash_attention']} flash_attention launches, "
+          f"want {L * n_prompts}")
+    check(launches["decode_attention"] == L * n_steps,
+          f"serve: {launches['decode_attention']} decode_attention launches,"
+          f" want {L * n_steps}")
+    kernels["flash_attention"]["launches"] = launches["flash_attention"]
+    kernels["decode_attention"]["launches"] = launches["decode_attention"]
+    for (prompt, max_new), out in zip(requests, answers):
+        check(out.shape == (max_new,) and out.dtype == np.int32
+              and out.min() >= 0 and out.max() < cfg.vocab,
+              f"serve: answer of shape {out.shape} for max_new {max_new}")
+    check(batch_out.shape == (B, new_b), "serve: batch answer shape")
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    # kernels against plain versions in the model, teacher-forced on the
+    # generated tokens (launches here are outside the counted run), in
+    # bf16 and in float32 on the same (bf16-valued) weights
+    model32 = Model(dataclasses.replace(cfg, dtype="float32"), dev)
+    with torch.no_grad():
+        for p32, p16 in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p16)
+
+    def logits_run(m, prompt2d, generated, impl):
+        lg, caches = prefill(m, torch.from_numpy(prompt2d).to(dev),
+                             sc.max_seq, impl)
+        out = [lg[:, -1]]
+        pos = prompt2d.shape[1]
+        for i in range(generated.shape[1] - 1):
+            tok = torch.from_numpy(generated[:, i:i + 1].copy()).to(dev)
+            lg, caches = decode_step(m, tok, pos + i, caches, impl)
+            out.append(lg[:, -1])
+        return torch.stack(out, 1)   # (B, n_new, V)
+
+    def max_diff(a, b):
+        return float((a - b).abs().max())
+
+    err = {"prefill": 0.0, "decode": 0.0, "float32": 0.0}
+    floor = {"prefill": None, "decode": None}
+    ratio = {"prefill": 0.0, "decode": 0.0}
+    gap_f32 = {"prefill": 0.0, "decode": 0.0}
+    mean_err = {"prefill": [], "decode": []}
+    replay_equal = 0
+    runs = [(p[None], a[None]) for (p, _), a in zip(requests, answers)]
+    runs.append((batch, batch_out))
+    for prompt2d, generated in runs:
+        k16 = logits_run(model, prompt2d, generated, "kernel")
+        p16 = logits_run(model, prompt2d, generated, "plain")
+        k32 = logits_run(model32, prompt2d, generated, "kernel")
+        p32 = logits_run(model32, prompt2d, generated, "plain")
+        check(all(bool(torch.isfinite(x).all()) for x in (k16, p16, k32, p32)),
+              "serve: non-finite logits")
+        err["float32"] = max(err["float32"], max_diff(k32, p32))
+        spans = {"prefill": slice(0, 1), "decode": slice(1, None)}
+        for part, sl in spans.items():
+            if k16[:, sl].shape[1] == 0:
+                continue
+            e = max_diff(k16[:, sl], p16[:, sl])
+            f = max_diff(p16[:, sl], p32[:, sl])
+            g = max_diff(k16[:, sl], p32[:, sl])
+            check(e <= 2 * f, f"serve: bf16 {part} logits of the kernels "
+                              f"differ from the plain versions' by {e}, "
+                              f"more than twice the bf16 noise floor {f}, "
+                              f"prompt {prompt2d.shape}")
+            check(g <= SERVE_BF16_F32_RATIO * f,
+                  f"serve: bf16 {part} logits of the kernels differ from "
+                  f"float32 by {g}, more than {SERVE_BF16_F32_RATIO} times "
+                  f"the plain bf16 path's {f}, prompt {prompt2d.shape}")
+            ratio[part] = max(ratio[part], g / f)
+            gap_f32[part] = max(gap_f32[part], g)
+            mean_err[part].append(float((k16[:, sl] - p16[:, sl]).abs().mean()))
+            err[part] = max(err[part], e)
+            floor[part] = f if floor[part] is None else min(floor[part], f)
+        replay_equal += int((k16.argmax(-1).cpu().numpy()
+                             == generated).sum())
+    check(err["float32"] <= SERVE_F32_TOL,
+          f"serve: float32 logits of the kernels differ from the plain "
+          f"versions' by {err['float32']} (tolerance {SERVE_F32_TOL})")
+    del model32
+
+    # times: prefill alone per prompt length (median of 3), decode per
+    # token from each request's submit time less its prefill
+    prefill_ms = {}
+    for prompt, _ in requests:
+        x = torch.from_numpy(prompt[None]).to(dev)
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(model, x, sc.max_seq)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms[len(prompt)] = statistics.median(ts)
+    decode_ms = [(s * 1e3 - prefill_ms[len(p)]) / (m - 1)
+                 for (p, m), s in zip(requests, submit_s)]
+    trace = trace_decode(torch, model, decode_step, prefill, sc,
+                         requests[2][0], dev)
+    n_tokens = sum(m for _, m in requests)
+    emit(phase="serve", arch=cfg.name, params=n_params,
+         param_bytes=param_bytes, dtype=cfg.dtype, max_seq=sc.max_seq,
+         init_seconds=init_s, requests=[
+             dict(prompt=len(p), max_new=m, submit_s=s)
+             for (p, m), s in zip(requests, submit_s)],
+         batch=dict(B=B, prompt=S_b, max_new=new_b, seconds=batch_s,
+                    tokens_per_s=B * new_b / batch_s),
+         launches=launches, prefill_ms=prefill_ms,
+         decode_ms_per_token=decode_ms,
+         decode_ms_per_token_median=statistics.median(decode_ms),
+         tokens_per_s=n_tokens / sum(submit_s),
+         max_memory_allocated=peak_bytes,
+         logit_max_abs_err_bf16={k: err[k] for k in ("prefill", "decode")},
+         logit_mean_abs_err_bf16={k: statistics.mean(v)
+                                  for k, v in mean_err.items()},
+         logit_bf16_vs_f32_floor_min=floor,
+         logit_bf16_kernel_vs_f32_max=gap_f32,
+         logit_bf16_kernel_vs_plain_f32_gap_ratio_max=ratio,
+         bf16_f32_ratio_bound=SERVE_BF16_F32_RATIO,
+         logit_max_abs_err_f32=err["float32"], f32_tolerance=SERVE_F32_TOL,
+         decode_trace=trace, greedy_replay_equal=replay_equal,
+         greedy_replay_total=sum(m for _, m in requests) + B * new_b)
+    return launches["flash_attention"] + launches["decode_attention"]
+
+
+TRACE_STEPS = 8   # decode steps traced with torch.profiler
+
+
+def trace_decode(torch, model, decode_step, prefill, sc, prompt, dev):
+    """Device work of TRACE_STEPS decode steps after `prompt`: kernels a
+    step, device-busy ms a step, wall ms a step and the idle share."""
+    x = torch.from_numpy(prompt[None]).to(dev)
+    _, caches = prefill(model, x, sc.max_seq)
+    tok = x[:, -1:]
+    pos = x.shape[1]
+    decode_step(model, tok, pos, caches)   # not traced: warms the path
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    for i in range(TRACE_STEPS):
+        decode_step(model, tok, pos + 1 + i, caches)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
+    prof.stop()
+    busy_us, n_ops, per_name = 0.0, 0, {}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            busy_us += us
+            n_ops += e.count
+            per_name[e.key] = per_name.get(e.key, 0.0) + us
+    check(n_ops > 0, "serve: the decode trace shows no device work")
+    busy_ms = busy_us / 1e3 / TRACE_STEPS
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(steps=TRACE_STEPS, prompt=len(prompt),
+                device_ops_per_step=n_ops / TRACE_STEPS,
+                device_busy_ms_per_step=busy_ms,
+                traced_wall_ms_per_step=wall_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                top_device_us_per_step=[[k[:60], us / TRACE_STEPS]
+                                        for k, us in top])
 
 
 if __name__ == "__main__":

@@ -10,6 +10,14 @@ lacks is None there (fleet-only fields such as `RequestState.endpoint`
 and `SimState.fleet`).  Dtypes are kept exactly: float32, int32 and
 bool; anything else raises.  `PolicyConfig.alloc_mode` becomes a
 Python int.  `to_numpy` is the inverse, for the tests.
+
+`params_from_jax(params, cfg, device)` carries the reference's model
+parameters across: its tree (nested dicts of arrays, the blocks stacked
+on a leading `L` axis, as `repro.models.init_model` builds it) becomes a
+port `Model` that computes the same function.  float32 leaves are
+copied; bfloat16 leaves (numpy dtype name `bfloat16`, as `np.asarray`
+of a JAX bfloat16 array gives them) are copied by their bits as uint16
+and viewed as `torch.bfloat16`, so no `ml_dtypes` import is needed.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from repro_torch.core.types import (
     WindowCarry,
 )
 from repro_torch.device import resolve_device
+from repro_torch.models.model import Model
 from repro_torch.sim.provider import ProviderPhysics
 
 PORT_TYPES = (RequestBatch, RequestState, SchedState, ProviderState,
@@ -82,3 +91,61 @@ def to_numpy(obj):
     if isinstance(obj, (tuple, list)):
         return type(obj)(to_numpy(v) for v in obj)
     return obj
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, dict):
+            out.update(_flatten(val, path))
+        else:
+            out[path] = val
+    return out
+
+
+def _param_tensor(arr) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(arr))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype == np.float32:
+        return torch.from_numpy(a.copy())
+    raise TypeError(f"unsupported parameter dtype {a.dtype}: the bridge "
+                    f"carries float32 and bfloat16")
+
+
+def params_from_jax(params, cfg, device="cuda") -> Model:
+    """The reference's parameter tree for `cfg` as a port `Model` on
+    `device`.  The tree must hold exactly the leaves the port's model
+    has, each of its shape (with the leading layer axis under `blocks`)
+    and of the config's dtype; anything else raises."""
+    model = Model(cfg, device)
+    flat = _flatten(params)
+    want = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layer, rest = int(parts[1]), "/".join(parts[2:])
+            want.setdefault(f"blocks/{rest}", []).append((layer, p))
+        else:
+            want["/".join(parts)] = [(None, p)]
+    missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
+    if missing or extra:
+        raise ValueError(f"params_from_jax: the tree does not match "
+                         f"{cfg.name}: missing {missing}, unexpected {extra}")
+    with torch.no_grad():
+        for path, targets in want.items():
+            src = _param_tensor(flat[path])
+            shape = targets[0][1].shape
+            if targets[0][0] is not None:
+                shape = (cfg.n_layers, *shape)
+            if tuple(src.shape) != tuple(shape):
+                raise ValueError(f"params_from_jax: {path} has shape "
+                                 f"{tuple(src.shape)}, {cfg.name} needs "
+                                 f"{tuple(shape)}")
+            if src.dtype != targets[0][1].dtype:
+                raise TypeError(f"params_from_jax: {path} is {src.dtype}, "
+                                f"{cfg.name} needs {targets[0][1].dtype}")
+            for layer, p in targets:
+                p.copy_(src if layer is None else src[layer])
+    return model

@@ -1,0 +1,84 @@
+"""Model and serving configuration of the port.
+
+The port's own copy of the dataclasses of `repro.config` that the model
+substrate and the serving engine read: `ModelConfig` (one architecture),
+`MoEConfig`, `SSMConfig` and `ServeConfig`.  Field names, defaults and
+the derived properties kept are the reference's, so a configuration reads the
+same in both packages.  The reference's `ShapeConfig` and `TrainConfig`,
+and the derived counts of the SSM and training slices, come with those
+slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    dense_residual: bool = False      # Arctic: dense MLP in parallel w/ MoE
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2                   # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk: int = 128                  # SSD chunk length
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                    # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int                      # 0 for attention-free
+    n_kv: int
+    d_ff: int
+    vocab: int
+    # attention flavor
+    rope: bool = True
+    rope_fraction: float = 1.0        # stablelm: rotary on 25% of head dim
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False
+    out_bias: bool = False
+    mlp_bias: bool = False
+    sliding_window: int = 0           # 0 = full attention
+    global_layers: tuple = ()         # hybrid: layers that keep full attn
+    # body flavor
+    activation: str = "silu_gated"    # silu_gated | sq_relu | gelu
+    norm: str = "rmsnorm"             # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    # mixtures / state-space
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # positions of the (stubbed) modality prefix
+    prefix_len: int = 0
+    # numerics
+    dtype: str = "bfloat16"
+    scan_unroll: bool = False         # kept for field parity; unused here
+    variant_note: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 128, as in the reference;
+        the padded logit columns are masked to -inf in the head."""
+        return ((self.vocab + 127) // 128) * 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_seq: int = 2048
+    max_batch: int = 8
+    temperature: float = 0.0
+    eos_id: int = 1

@@ -7,13 +7,20 @@ into a shared library with a plain C interface,
          -shared -Xcompiler -fPIC -o build/repro_torch_kernels/<lib>.so <src>
 
 under the checkout's git-ignored `build/repro_torch_kernels/`, named by
-a hash of the source and the flags, and guarded by a file lock so that
-concurrent processes build once.  `-fmad=false` (and no fast-math)
-keeps every float operation single-rounded, which is what lets the
-kernels' float32 bits equal their plain PyTorch versions.
+a hash of the source and the flags, and guarded by a file lock of its
+own so that concurrent processes build it once.  `-fmad=false` (and no
+fast-math) keeps every float operation single-rounded, which is what
+lets the scheduler kernels' float32 bits equal their plain PyTorch
+versions.  One flag set serves every source: the attention kernels are
+held to a tolerance, not to bits, and write their inner products with
+explicit `fmaf`, so the flag costs them only the contractions they do
+not spell out (`tools/attention_fmad_cost.py` times both builds).
 
 `build(name)` compiles one source if its library is missing;
-`load(name)` returns the built library as a `ctypes.CDLL`.
+`build_all()` starts one nvcc for each source at once and waits for
+all; `load(name, signatures)` returns the built library as a
+`ctypes.CDLL` with its entry points' signatures bound, and
+`check_rc` turns a launch's error code into an exception.
 """
 from __future__ import annotations
 
@@ -23,12 +30,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 SOURCES = {
     "sched_score": KERNELS_DIR / "sched_score" / "sched_score.cu",
+    "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
+    "decode_attention": KERNELS_DIR / "decode_attention" / "decode_attention.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,7 +66,7 @@ def build(name: str) -> Path:
     its path.  Raises with nvcc's output on a failed build."""
     path = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
+    with open(BUILD_DIR / f".{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not path.is_file():
@@ -76,7 +86,32 @@ def build(name: str) -> Path:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library for `name`, built first if needed.  Callers keep the
-    handle (each wrapper module binds its C signatures once)."""
-    return ctypes.CDLL(str(build(name)))
+def build_all() -> dict[str, Path]:
+    """Every source's library, the missing ones compiled in parallel (one
+    nvcc process each, all started together).  Raises on the first
+    failed build."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = dict(zip(SOURCES, pool.map(build, SOURCES)))
+    return paths
+
+
+def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The library for `name`, built first if needed, with the C
+    signatures of its entry points bound: `signatures` maps each
+    function to its argument types (every entry point returns int, the
+    CUDA error code), and every library's `repro_cuda_error_string` is
+    bound too.  Callers keep the handle."""
+    lib = ctypes.CDLL(str(build(name)))
+    for fn, args in signatures.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_rc(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise with CUDA's message unless the launch returned 0."""
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")

@@ -53,25 +53,12 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures bound (once)."""
     global _LIB
     if _LIB is None:
-        lib = _build.load("sched_score")
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        lib.sched_score_tile.argtypes = []
-        lib.sched_score_tile.restype = ctypes.c_int
+        lib = _build.load("sched_score", {**_SIGNATURES,
+                                          "sched_score_tile": []})
         if lib.sched_score_tile() != TILE:
             raise RuntimeError("sched_score.cu TILE disagrees with ops.TILE")
         _LIB = lib
     return _LIB
-
-
-def _check_rc(lib, rc: int, name: str) -> None:
-    if rc != 0:
-        msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 
 def _check(name, tensors, dtypes, n):
@@ -144,7 +131,7 @@ def sched_score_topb(wait, cost, urgency, mask, weights, b: int, route=None):
         _ptr(wait), _ptr(cost), _ptr(urgency), _ptr(route), _ptr(mask),
         _ptr(weights), n, b, _ptr(sa), _ptr(sb), _ptr(idx), _ptr(score),
         torch.cuda.current_stream(dev).cuda_stream)
-    _check_rc(lib, rc, "sched_score_topb")
+    _build.check_rc(lib, rc, "sched_score_topb")
     LAUNCHES["sched_score_topb"] += 1
     return idx, score
 
@@ -165,7 +152,7 @@ def sched_score_argmax(wait, cost, urgency, mask, weights, route=None):
         _ptr(wait), _ptr(cost), _ptr(urgency), _ptr(route), _ptr(mask),
         _ptr(weights), n, _ptr(sa), _ptr(sb), _ptr(idx), _ptr(score),
         torch.cuda.current_stream(dev).cuda_stream)
-    _check_rc(lib, rc, "sched_score_argmax")
+    _build.check_rc(lib, rc, "sched_score_argmax")
     LAUNCHES["sched_score_argmax"] += 1
     return idx, score
 
@@ -206,6 +193,6 @@ def sched_compact_topb(slot_req, alive, wait, cost, urgency, weights, b: int,
         _ptr(slot_req), _ptr(alive), _ptr(wait), _ptr(cost), _ptr(urgency),
         _ptr(route), _ptr(weights), w, b, _ptr(out_req), _ptr(n_live),
         _ptr(idx), _ptr(score), torch.cuda.current_stream(dev).cuda_stream)
-    _check_rc(lib, rc, "sched_compact_topb")
+    _build.check_rc(lib, rc, "sched_compact_topb")
     LAUNCHES["sched_compact_topb"] += 1
     return out_req, n_live, idx, score

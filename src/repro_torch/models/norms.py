@@ -1,0 +1,34 @@
+"""RMSNorm / LayerNorm, computed in float32 whatever the parameter
+dtype.  Counterpart of `repro.models.norms`: `eps = 1e-5`, division by
+the square root (not a reciprocal-root product), and LayerNorm's
+population variance (`jnp.var`), not torch's unbiased default."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.common import param
+
+
+class Norm(nn.Module):
+    def __init__(self, d: int, kind: str, dtype, device, eps: float = 1e-5):
+        super().__init__()
+        if kind not in ("rmsnorm", "layernorm"):
+            raise ValueError(kind)
+        self.kind, self.eps = kind, eps
+        self.scale = param((d,), dtype, device, 1.0)
+        self.bias = (param((d,), dtype, device, 0.0) if kind == "layernorm"
+                     else None)
+
+    def forward(self, x):
+        xf = x.float()
+        if self.kind == "rmsnorm":
+            ms = (xf * xf).mean(-1, keepdim=True)
+            y = xf / torch.sqrt(ms + self.eps)
+            return (y * self.scale.float()).to(x.dtype)
+        mu = xf.mean(-1, keepdim=True)
+        c = xf - mu
+        var = (c * c).mean(-1, keepdim=True)
+        y = c / torch.sqrt(var + self.eps)
+        y = y * self.scale.float() + self.bias.float()
+        return y.to(x.dtype)

@@ -4,12 +4,16 @@
   `jax` or anything of the reference package `repro` (an AST walk, so
   imports inside functions count too).
 * Entry points default to CUDA and raise when no card is present,
-  unless the caller asks for the CPU.
+  unless the caller asks for the CPU: the simulator's and the serving
+  path's (`init_model`, `generate`, `BlackBoxProvider`).
+* `params_from_jax` refuses a parameter tree that does not fit the
+  config.
 * Every kernel package of the port ships its CUDA source, a plain
   `ref.py` with `*_ref` functions, and a test that imports them (the
   port's counterpart of the reference's RPL005 kernel contract).
 """
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -17,7 +21,12 @@ import pytest
 import torch
 
 from repro_torch import bridge, device
+from repro_torch.config import ServeConfig
+from repro_torch.configs import get_smoke
 from repro_torch.core.policy import strategy
+from repro_torch.models import Model, init_model
+from repro_torch.serving import BlackBoxProvider
+from repro_torch.serving import generate as serve_generate
 from repro_torch.sim import SimConfig, WorkloadConfig, generate, run_cell, run_sim
 from repro_torch.sim.provider import default_physics
 
@@ -70,6 +79,55 @@ def test_other_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError):
         run_sim(strategy("final_adrr_olc"), batch, jitter, default_physics(),
                 SimConfig(n_ticks=2))
+
+
+def test_serving_entry_points_raise_without_cuda(no_cuda):
+    cfg = get_smoke("stablelm-1.6b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_model(cfg)
+    model = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    sc = ServeConfig(max_seq=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_generate(model, sc, np.zeros((1, 4), np.int32), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BlackBoxProvider(model, sc)
+    out = BlackBoxProvider(model, sc, device="cpu").submit(
+        np.zeros(4, np.int32), 3)
+    assert out.shape == (3,) and out.dtype == np.int32
+
+
+def _numpy_tree(model):
+    """`model`'s parameters as the reference lays them out: nested dicts
+    of numpy arrays, the blocks stacked on a leading layer axis."""
+    tree = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        arr = p.detach().numpy()
+        if parts[0] == "blocks":
+            if parts[1] != "0":
+                continue
+            parts = ["blocks"] + parts[2:]
+            arr = np.stack([arr] * len(model.blocks))
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = arr
+    return tree
+
+
+def test_params_from_jax_rejects_a_tree_of_other_shapes():
+    cfg = dataclasses.replace(get_smoke("starcoder2-3b"), dtype="float32")
+    tree = _numpy_tree(init_model(cfg, torch.Generator().manual_seed(1),
+                                  device="cpu"))
+    model = bridge.params_from_jax(tree, cfg, device="cpu")
+    assert isinstance(model, Model)
+    tree["blocks"]["mlp"]["wi"]["w"] = tree["blocks"]["mlp"]["wi"]["w"][:, 1:]
+    with pytest.raises(ValueError, match="mlp/wi/w"):
+        bridge.params_from_jax(tree, cfg, device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        bridge.params_from_jax(
+            _numpy_tree(model), dataclasses.replace(cfg, n_layers=3),
+            device="cpu")
 
 
 def test_cpu_is_allowed_explicitly(no_cuda):
