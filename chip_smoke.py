@@ -6,10 +6,15 @@
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit.  It builds the hand kernels from the checkout's sources,
 holds each against its plain PyTorch version on the card, drives the
-port's two main paths and checks what comes out: the windowed scheduler
+port's main paths and checks what comes out: the windowed scheduler
 simulator, whose ordering layer ranks every class through
-`sched_score_topb`, and the serving engine, whose prefill runs
-`flash_attention` and whose every decode step runs `decode_attention`.
+`sched_score_topb`, and the serving engine over three full-width
+models: the dense StableLM-2-1.6B, whose prefill runs `flash_attention`
+and whose every decode step runs `decode_attention`; the state-space
+Mamba2-780M, whose prefill runs `ssd_intra` in every layer; and the
+hybrid Hymba-1.5B, which runs all three.  Each path is driven with every
+kernel's launch count set to 0 just before it and read just after; the
+kernels line carries each kernel's launches summed over the paths.
 Each phase prints one JSON line; any failure raises and the script
 exits non-zero.  The last lines are the card (as nvidia-smi reports
 it), one JSON line of kernel measurements, and the result line
@@ -46,17 +51,38 @@ Phases:
      launch counts must be 24 a prompt and 24 a decode step; prefill
      and teacher-forced decode logits on the kernels are held against
      the plain versions on the card; prefill and decode times, tokens/s
-     and peak memory are reported.
+     and peak memory are reported;
+  8. ssd_kernel: `ssd_intra` against its plain version on the card at
+     the serve runs' shapes (Mamba2-780M: H = 48, P = 64, N = 128, a
+     1024-, 8-, 37- and 300-token prompt and a batch of 4 x 256;
+     Hymba-1.5B: H = 50, N = 16, 300, 1536 and 2048 tokens and 4 x 256),
+     each with dt as the seeded model gives it and with dt from
+     Mamba2's published range, whose slow decay makes the whole chunk
+     count, within 1e-4 abs/rel on y and state; times of the kernel and
+     its plain version beside the bound (no single PyTorch call
+     computes it);
+  9. serve_ssm: `mamba2-780m` (48 SSM layers) as phase 7, the same six
+     requests and batch; 48 `ssd_intra` launches a prompt, none a
+     decode step, no attention;
+ 10. serve_hybrid: `hymba-1.5b` (32 hybrid layers, window 1024, global
+     layers 0, 15, 31) answers prompts of 300 and 1536 tokens (past the
+     window), 8 new each, and the batch of 4; 32 `flash_attention` and
+     32 `ssd_intra` launches a prompt, 32 `decode_attention` a decode
+     step.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -109,14 +135,17 @@ def main() -> None:
     scale = phase_scale(torch, dev, kernels)
     kernels.update(phase_attention_kernels(torch, dev))
     served = phase_serve(torch, dev, kernels)
+    kernels.update(phase_ssd_kernel(torch, dev))
+    served_ssm = phase_serve_ssm(torch, dev, kernels)
+    served_hybrid = phase_serve_hybrid(torch, dev, kernels)
 
     print(smi, flush=True)
     emit(kernels=[kernels[k] for k in
                   ("sched_score_topb", "sched_score_argmax",
                    "sched_compact_topb", "flash_attention",
-                   "decode_attention")])
-    check(cell_launches > 0 and scale > 0 and served > 0,
-          "main path launched no kernel")
+                   "decode_attention", "ssd_intra")])
+    check(cell_launches > 0 and scale > 0 and served > 0 and served_ssm > 0
+          and served_hybrid > 0, "main path launched no kernel")
     emit(ok=True, device={"platform": "gpu", "kind": kind,
                           "count": torch.cuda.device_count()})
 
@@ -289,8 +318,6 @@ def phase_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 
 def phase_paper_cell(torch, dev):
-    import numpy as np
-
     from repro_torch.core.policy import strategy
     from repro_torch.kernels.sched_score import ops
     from repro_torch.sim import SimConfig, WorkloadConfig, run_cell
@@ -673,37 +700,76 @@ def phase_attention_kernels(torch, dev):
 SERVE_ARCH = "stablelm-1.6b"
 SERVE_PROMPTS = (8, 37, 128, 300, 512, 1024)   # tokens, one request each
 SERVE_BATCH = (4, 256, 16)                      # B, prompt tokens, max_new
-# kernels against plain versions inside the 24-layer model.  In float32
-# the two differ only in the order of the attention sums (1e-6 on the
-# kernels' outputs), so logits of order 1 must agree within 1e-3.  In
-# bf16 each one-ulp difference of an attention output is carried on
-# through the later layers' bf16 roundings, so the two paths differ by
-# bf16 rounding noise.  The bounds there rest on the run's own noise
-# floor f, the largest gap between the plain bf16 logits and float32
-# arithmetic on the same weights.  The kernels' bf16 logits must lie
-# within 2 f of the plain bf16 logits (as two bf16 paths that each sit
-# within f of float32 would), and within SERVE_BF16_F32_RATIO * f of
-# float32: as close to float32 as the plain bf16 path, up to that
-# ratio.  On an H100 the ratio read 1.084 (prefill) and 1.147 (decode),
-# the largest over the run's seven prompts (PERF.md section 6); it is
-# held at 1.5.
+# kernels against plain versions inside the full-width model.  In float32
+# the two differ only in the order of the kernels' sums (1e-6 on their
+# outputs), so logits of order 1 must agree within 1e-3.  In bf16 each
+# one-ulp difference of a kernel's output is carried on through the
+# later layers' bf16 roundings, so the two paths differ by bf16 rounding
+# noise.  The bounds there rest on the run's own noise floor f, the
+# largest gap between the plain bf16 logits and float32 arithmetic on
+# the same weights.  The kernels' bf16 logits must lie within 2 f of the
+# plain bf16 logits (as two bf16 paths that each sit within f of float32
+# would), and within SERVE_BF16_F32_RATIO * f of float32: as close to
+# float32 as the plain bf16 path, up to that ratio.  On an H100 the
+# ratio read 1.084 (prefill) and 1.147 (decode) for StableLM, the
+# largest over the run's seven prompts (PERF.md section 6); it is held
+# at 1.5 for every served model.
 SERVE_F32_TOL = 1e-3
 SERVE_BF16_F32_RATIO = 1.5
+SERVED_KERNELS = ("flash_attention", "decode_attention", "ssd_intra")
 
 
-def phase_serve(torch, dev, kernels):
-    import numpy as np
-
-    from repro_torch.config import ServeConfig
-    from repro_torch.configs import get
-    from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.models import Model, decode_step, init_model, prefill
-    from repro_torch.serving import BlackBoxProvider, generate
+def serve_requests(rng, vocab, prompts, max_news=None):
+    """One (prompt tokens, max_new) per prompt length.  Without
+    `max_news`, max_new is drawn from the paper's length buckets scaled
+    down 64x as the reference's launcher scales them, held between 8
+    and 64 tokens."""
     from repro_torch.sim.workload import BUCKET_TOKENS
 
-    cfg = get(SERVE_ARCH)
-    sc = ServeConfig(max_seq=2048)
+    buckets = [0, 1, 2, 3, 2, 3]
+    out = []
+    for i, S in enumerate(prompts):
+        if max_news is None:
+            lo, hi = BUCKET_TOKENS[buckets[i]].tolist()
+            max_new = int(np.clip(int(rng.uniform(lo, hi) / 64), 8, 64))
+        else:
+            max_new = max_news[i]
+        out.append((rng.integers(0, vocab, size=S, dtype=np.int32), max_new))
+    return out
+
+
+def launch_counters():
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    return {"flash_attention": fa, "decode_attention": da, "ssd_intra": ssd}
+
+
+def serve_model(torch, dev, kernels, *, phase, arch, max_seq, requests, rng,
+                batch_shape, per_prompt, per_step, trace_request):
+    """Build `arch` at full width in bf16 from a seeded CUDA generator,
+    answer `requests` through `BlackBoxProvider.submit` and one batch of
+    `batch_shape` (B, prompt tokens, max_new; tokens drawn from `rng`)
+    through `generate`, with
+    every kernel's launch count set to 0 just before and read just
+    after.  `per_prompt` and `per_step` give the launches a prefill and
+    a decode step of each kernel the path runs; every kernel of
+    `SERVED_KERNELS` must show exactly that many (0 where not named).  Then holds the kernels' logits against the
+    plain versions' in the model (float32 within SERVE_F32_TOL; bf16 by
+    the e <= 2f, g <= SERVE_BF16_F32_RATIO * f rule), times prefill,
+    decode and the batch, traces decode steps after
+    requests[trace_request], emits one line and adds the launches to
+    `kernels`.  Returns the number of launches."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get
+    from repro_torch.models import Model, decode_step, init_model, prefill
+    from repro_torch.serving import BlackBoxProvider, generate
+
+    counters = launch_counters()
+    cfg = get(arch)
+    sc = ServeConfig(max_seq=max_seq)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -713,28 +779,17 @@ def phase_serve(torch, dev, kernels):
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
-
-    rng = np.random.default_rng(0)
-    buckets = [0, 1, 2, 3, 2, 3]
-    requests = []
-    for S, bucket in zip(SERVE_PROMPTS, buckets):
-        lo, hi = BUCKET_TOKENS[bucket].tolist()
-        # scaled down 64x as the reference's launcher scales them,
-        # held between 8 and 64 tokens
-        max_new = int(np.clip(int(rng.uniform(lo, hi) / 64), 8, 64))
-        requests.append((rng.integers(0, cfg.vocab, size=S, dtype=np.int32),
-                         max_new))
-    B, S_b, new_b = SERVE_BATCH
+    B, S_b, new_b = batch_shape
     batch = rng.integers(0, cfg.vocab, size=(B, S_b), dtype=np.int32)
     provider = BlackBoxProvider(model, sc, device=dev)
 
     # one short answer first, so that the counted run's times do not
     # carry the first calls' set-up (cuBLAS handles, library loading)
-    provider.submit(requests[0][0], 2)
+    provider.submit(requests[0][0][:8], 2)
 
     # the main path, counted
-    fa.reset_launches()
-    da.reset_launches()
+    for ops in counters.values():
+        ops.reset_launches()
     torch.cuda.synchronize()
     answers, submit_s = [], []
     for prompt, max_new in requests:
@@ -744,24 +799,25 @@ def phase_serve(torch, dev, kernels):
     t0 = time.perf_counter()
     batch_out = generate(model, sc, batch, new_b, device=dev).cpu().numpy()
     batch_s = time.perf_counter() - t0
-    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
-                "decode_attention": da.LAUNCHES["decode_attention"]}
+    launches = {k: ops.LAUNCHES[k] for k, ops in counters.items()}
     n_prompts = len(requests) + 1
     n_steps = sum(m - 1 for _, m in requests) + new_b - 1
-    L = cfg.n_layers
-    check(launches["flash_attention"] == L * n_prompts,
-          f"serve: {launches['flash_attention']} flash_attention launches, "
-          f"want {L * n_prompts}")
-    check(launches["decode_attention"] == L * n_steps,
-          f"serve: {launches['decode_attention']} decode_attention launches,"
-          f" want {L * n_steps}")
-    kernels["flash_attention"]["launches"] = launches["flash_attention"]
-    kernels["decode_attention"]["launches"] = launches["decode_attention"]
+    for name in SERVED_KERNELS:
+        want = (per_prompt.get(name, 0) * n_prompts
+                + per_step.get(name, 0) * n_steps)
+        check(launches[name] == want,
+              f"{phase}: {launches[name]} {name} launches, want {want} "
+              f"({per_prompt.get(name, 0)} a prompt x {n_prompts}, "
+              f"{per_step.get(name, 0)} a decode step x {n_steps})")
+        if name in per_prompt or name in per_step:
+            kernels[name]["launches"] += launches[name]
     for (prompt, max_new), out in zip(requests, answers):
         check(out.shape == (max_new,) and out.dtype == np.int32
               and out.min() >= 0 and out.max() < cfg.vocab,
-              f"serve: answer of shape {out.shape} for max_new {max_new}")
-    check(batch_out.shape == (B, new_b), "serve: batch answer shape")
+              f"{phase}: answer of shape {out.shape} for max_new {max_new}")
+    check(batch_out.shape == (B, new_b)
+          and batch_out.min() >= 0 and batch_out.max() < cfg.vocab,
+          f"{phase}: batch answer shape {batch_out.shape}")
     peak_bytes = torch.cuda.max_memory_allocated()
 
     # kernels against plain versions in the model, teacher-forced on the
@@ -781,7 +837,8 @@ def phase_serve(torch, dev, kernels):
             tok = torch.from_numpy(generated[:, i:i + 1].copy()).to(dev)
             lg, caches = decode_step(m, tok, pos + i, caches, impl)
             out.append(lg[:, -1])
-        return torch.stack(out, 1)   # (B, n_new, V)
+        # (B, n_new, vocab): the alignment padding's -inf columns dropped
+        return torch.stack(out, 1)[..., :cfg.vocab]
 
     def max_diff(a, b):
         return float((a - b).abs().max())
@@ -799,8 +856,9 @@ def phase_serve(torch, dev, kernels):
         p16 = logits_run(model, prompt2d, generated, "plain")
         k32 = logits_run(model32, prompt2d, generated, "kernel")
         p32 = logits_run(model32, prompt2d, generated, "plain")
-        check(all(bool(torch.isfinite(x).all()) for x in (k16, p16, k32, p32)),
-              "serve: non-finite logits")
+        check(all(bool(torch.isfinite(x).all())
+                  for x in (k16, p16, k32, p32)),
+              f"{phase}: non-finite logits")
         err["float32"] = max(err["float32"], max_diff(k32, p32))
         spans = {"prefill": slice(0, 1), "decode": slice(1, None)}
         for part, sl in spans.items():
@@ -809,23 +867,24 @@ def phase_serve(torch, dev, kernels):
             e = max_diff(k16[:, sl], p16[:, sl])
             f = max_diff(p16[:, sl], p32[:, sl])
             g = max_diff(k16[:, sl], p32[:, sl])
-            check(e <= 2 * f, f"serve: bf16 {part} logits of the kernels "
+            check(e <= 2 * f, f"{phase}: bf16 {part} logits of the kernels "
                               f"differ from the plain versions' by {e}, "
                               f"more than twice the bf16 noise floor {f}, "
                               f"prompt {prompt2d.shape}")
             check(g <= SERVE_BF16_F32_RATIO * f,
-                  f"serve: bf16 {part} logits of the kernels differ from "
+                  f"{phase}: bf16 {part} logits of the kernels differ from "
                   f"float32 by {g}, more than {SERVE_BF16_F32_RATIO} times "
                   f"the plain bf16 path's {f}, prompt {prompt2d.shape}")
             ratio[part] = max(ratio[part], g / f)
             gap_f32[part] = max(gap_f32[part], g)
-            mean_err[part].append(float((k16[:, sl] - p16[:, sl]).abs().mean()))
+            mean_err[part].append(float((k16[:, sl] - p16[:, sl]).abs()
+                                        .mean()))
             err[part] = max(err[part], e)
             floor[part] = f if floor[part] is None else min(floor[part], f)
         replay_equal += int((k16.argmax(-1).cpu().numpy()
                              == generated).sum())
     check(err["float32"] <= SERVE_F32_TOL,
-          f"serve: float32 logits of the kernels differ from the plain "
+          f"{phase}: float32 logits of the kernels differ from the plain "
           f"versions' by {err['float32']} (tolerance {SERVE_F32_TOL})")
     del model32
 
@@ -845,9 +904,9 @@ def phase_serve(torch, dev, kernels):
     decode_ms = [(s * 1e3 - prefill_ms[len(p)]) / (m - 1)
                  for (p, m), s in zip(requests, submit_s)]
     trace = trace_decode(torch, model, decode_step, prefill, sc,
-                         requests[2][0], dev)
+                         requests[trace_request][0], dev)
     n_tokens = sum(m for _, m in requests)
-    emit(phase="serve", arch=cfg.name, params=n_params,
+    emit(phase=phase, arch=cfg.name, params=n_params,
          param_bytes=param_bytes, dtype=cfg.dtype, max_seq=sc.max_seq,
          init_seconds=init_s, requests=[
              dict(prompt=len(p), max_new=m, submit_s=s)
@@ -869,7 +928,163 @@ def phase_serve(torch, dev, kernels):
          logit_max_abs_err_f32=err["float32"], f32_tolerance=SERVE_F32_TOL,
          decode_trace=trace, greedy_replay_equal=replay_equal,
          greedy_replay_total=sum(m for _, m in requests) + B * new_b)
-    return launches["flash_attention"] + launches["decode_attention"]
+    del provider, model
+    return sum(launches.values())
+
+
+def phase_serve(torch, dev, kernels):
+    """stablelm-1.6b: 24 flash_attention launches a prompt, 24
+    decode_attention launches a decode step, no ssd_intra."""
+    from repro_torch.configs import get
+
+    L = get(SERVE_ARCH).n_layers
+    rng = np.random.default_rng(0)
+    requests = serve_requests(rng, get(SERVE_ARCH).vocab, SERVE_PROMPTS)
+    return serve_model(
+        torch, dev, kernels, phase="serve", arch=SERVE_ARCH, max_seq=2048,
+        requests=requests, rng=rng, batch_shape=SERVE_BATCH,
+        per_prompt={"flash_attention": L}, per_step={"decode_attention": L},
+        trace_request=2)
+
+
+# ---------------------------------------------------------------------------
+# 8. the SSD kernel against its plain version
+# ---------------------------------------------------------------------------
+
+SSD_TOL = 1e-4   # abs and rel, the CPU tests' bound against the reference
+SSD_SRC = "src/repro_torch/kernels/ssd_scan/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:53"
+# (geometry, B, S): the prompts the serve runs give the kernel.  Mamba2:
+# H = 48, P = 64, N = 128; Hymba: H = 50, P = 64, N = 16; chunk 128.
+# S = 8 and 37 are one short chunk each, 300 is padded to 384
+SSD_CASES = (("mamba2", 1, 1024), ("mamba2", 1, 8), ("mamba2", 1, 37),
+             ("mamba2", 1, 300), ("mamba2", 4, 256), ("hymba", 1, 300),
+             ("hymba", 1, 1536), ("hymba", 4, 256), ("hymba", 1, 2048))
+# each case's dt is drawn two ways, with A = exp(A_log) of the init
+# (linspace(1, 16, H)).  "init": softplus of a unit normal, as the seeded
+# model gives it (dt_bias 0), about 0.8, so that a step's weight has
+# decayed below 1e-6 within ~17 steps and most of the chunk's Q x Q
+# patches and state rows add too little to show at 1e-4.  "published":
+# log-uniform in Mamba2's dt range [1e-3, 0.1], where the slowest heads
+# keep ~0.07 of a step's weight across a 128-step chunk, so every patch
+# of C.B^T and every row of the state's sum over the chunk shows.
+SSD_DT = ("init", "published")
+SSD_LINE = ("mamba2", 1, 1024, "init")
+
+
+def ssd_work(B, nc, Q, H, P, N):
+    """(bytes, operations) the intra-chunk step needs: each input read
+    and each output written once; C.B^T once per (batch, chunk) on and
+    below the diagonal (it is the same for every head), then per head the
+    decay weights (subtract, exp, two products per pair), W x on the
+    causal pairs, the state weights and the state product."""
+    pairs = Q * (Q + 1) // 2
+    n_bytes = 4 * B * nc * (2 * Q * H * P + 2 * Q * N + 2 * Q * H + H * P * N)
+    n_ops = B * nc * (2 * N * pairs + H * (4 * pairs + 2 * P * pairs
+                                           + 3 * Q + Q * P + 2 * Q * P * N))
+    return n_bytes, n_ops
+
+
+def phase_ssd_kernel(torch, dev):
+    from repro_torch.configs import get
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.models.ssm import chunk_inputs, softplus
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    geo = {"mamba2": get("mamba2-780m"), "hymba": get("hymba-1.5b")}
+    rows, err = [], 0.0
+    for (g, B, S), dt_kind in itertools.product(SSD_CASES, SSD_DT):
+        cfg = geo[g]
+        H, P, N = cfg.n_ssm_heads, cfg.ssm.head_dim, cfg.ssm.d_state
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        if dt_kind == "init":
+            dt = softplus(rand(B, S, H))
+        else:
+            u = torch.rand((B, S, H), generator=gen, device=dev)
+            dt = torch.exp(math.log(1e-3) + u * math.log(1e2))
+        A = torch.linspace(1.0, 16.0, H, device=dev)
+        args = chunk_inputs(rand(B, S, H, P), rand(B, S, N), rand(B, S, N),
+                            dt, A, cfg.ssm.chunk)
+        xc = args[0]
+        nc, Q = xc.shape[1], xc.shape[2]
+        got = ops.ssd_intra(*args)
+        want = ref.ssd_intra_ref(*args)
+        case = dict(geometry=g, B=B, S=S, dt=dt_kind, nc=nc, Q=Q, H=H, P=P,
+                    N=N)
+        errs = {}
+        for name, a, b in zip(("y", "state"), got, want):
+            d = (a - b).abs()
+            ok = bool((d <= SSD_TOL + SSD_TOL * b.abs()).all()) and bool(
+                torch.isfinite(a).all())
+            errs[name] = float(d.max())
+            check(ok, f"ssd_intra {case}: {name} differs from the plain "
+                      f"version (max abs err {errs[name]})")
+        err = max(err, *errs.values())
+        n_bytes, n_ops = ssd_work(B, nc, Q, H, P, N)
+        t_b, by = bound(n_bytes, n_ops)
+        rows.append(dict(
+            name="ssd_intra", **case, max_abs_err_y=errs["y"],
+            max_abs_err_state=errs["state"],
+            ms=device_ms(torch, lambda: ops.ssd_intra(*args)),
+            plain_ms=device_ms(torch, lambda: ref.ssd_intra_ref(*args),
+                               reps=20),
+            library_ms=None, bound_ms=t_b, bound_by=by, bytes=n_bytes,
+            operations=n_ops))
+    torch.cuda.synchronize()
+    for row in rows:
+        emit(phase="ssd_kernel_case", **row)
+    emit(phase="ssd_kernel", cases=len(rows), max_abs_err=err,
+         tolerance=SSD_TOL)
+    line = next(r for r in rows
+                if (r["geometry"], r["B"], r["S"], r["dt"]) == SSD_LINE)
+    return {"ssd_intra": dict(
+        name="ssd_intra", route="cuda", source=SSD_SRC,
+        replaces=SSD_REPLACES, launches=0, max_abs_err=err, ms=line["ms"],
+        plain_ms=line["plain_ms"], bound_ms=line["bound_ms"],
+        bound_by=line["bound_by"], library_ms=None)}
+
+
+# ---------------------------------------------------------------------------
+# 9-10. the state-space and hybrid serving paths at full width
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_PROMPTS = (300, 1536)   # the second passes the 1024-token window
+HYBRID_MAX_NEW = (8, 8)
+
+
+def phase_serve_ssm(torch, dev, kernels):
+    """mamba2-780m: the StableLM run's six requests and batch; 48
+    ssd_intra launches a prompt, none a decode step, no attention."""
+    from repro_torch.configs import get
+
+    cfg = get(SSM_ARCH)
+    rng = np.random.default_rng(0)
+    requests = serve_requests(rng, cfg.vocab, SERVE_PROMPTS)
+    return serve_model(
+        torch, dev, kernels, phase="serve_ssm", arch=SSM_ARCH, max_seq=2048,
+        requests=requests, rng=rng, batch_shape=SERVE_BATCH,
+        per_prompt={"ssd_intra": cfg.n_layers}, per_step={},
+        trace_request=2)
+
+
+def phase_serve_hybrid(torch, dev, kernels):
+    """hymba-1.5b: 32 flash_attention and 32 ssd_intra launches a
+    prompt, 32 decode_attention launches a decode step."""
+    from repro_torch.configs import get
+
+    cfg = get(HYBRID_ARCH)
+    L = cfg.n_layers
+    rng = np.random.default_rng(3)
+    requests = serve_requests(rng, cfg.vocab, HYBRID_PROMPTS, HYBRID_MAX_NEW)
+    return serve_model(
+        torch, dev, kernels, phase="serve_hybrid", arch=HYBRID_ARCH,
+        max_seq=2048, requests=requests, rng=rng, batch_shape=SERVE_BATCH,
+        per_prompt={"flash_attention": L, "ssd_intra": L},
+        per_step={"decode_attention": L}, trace_request=0)
 
 
 TRACE_STEPS = 8   # decode steps traced with torch.profiler

@@ -5,8 +5,7 @@ substrate and the serving engine read: `ModelConfig` (one architecture),
 `MoEConfig`, `SSMConfig` and `ServeConfig`.  Field names, defaults and
 the derived properties kept are the reference's, so a configuration reads the
 same in both packages.  The reference's `ShapeConfig` and `TrainConfig`,
-and the derived counts of the SSM and training slices, come with those
-slices.
+and the derived counts of the training slice, come with that slice.
 """
 from __future__ import annotations
 
@@ -74,6 +73,14 @@ class ModelConfig:
         """Vocab rounded up to a multiple of 128, as in the reference;
         the padded logit columns are masked to -inf in the head."""
         return ((self.vocab + 127) // 128) * 128
+
+    @property
+    def d_inner(self) -> int:
+        return (self.ssm.expand * self.d_model) if self.ssm else 0
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm.head_dim if self.ssm else 0
 
 
 @dataclasses.dataclass(frozen=True)

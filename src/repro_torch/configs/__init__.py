@@ -2,8 +2,8 @@
 `ModelConfig`, `get_smoke(name)` -> the reduced same-family variant the
 CPU tests run.
 
-Counterpart of `repro.configs`.  The port carries the dense
-architectures its serving path runs; every other name of the
+Counterpart of `repro.configs`.  The port carries the dense, state-space
+and hybrid architectures its serving path runs; every other name of the
 reference's registry raises `KeyError` naming the ROADMAP item that
 ports it.
 """
@@ -11,18 +11,18 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["stablelm-1.6b", "starcoder2-3b"]
+ARCHS = ["stablelm-1.6b", "starcoder2-3b", "mamba2-780m", "hymba-1.5b"]
 
 _MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "starcoder2-3b": "starcoder2_3b",
+    "mamba2-780m": "mamba2_780m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 # the reference's other architectures and the queue-A item of ROADMAP.md
 # that brings each into the port
 NOT_PORTED = {
-    "mamba2-780m": "A8b (SSM and hybrid blocks with the ssd_intra kernel)",
-    "hymba-1.5b": "A8b (SSM and hybrid blocks with the ssd_intra kernel)",
     "arctic-480b": "A8c (MoE blocks)",
     "phi3.5-moe-42b-a6.6b": "A8c (MoE blocks)",
     "nemotron-4-340b": "A8d (further dense archs and modality prefixes)",

@@ -11,10 +11,11 @@ a hash of the source and the flags, and guarded by a file lock of its
 own so that concurrent processes build it once.  `-fmad=false` (and no
 fast-math) keeps every float operation single-rounded, which is what
 lets the scheduler kernels' float32 bits equal their plain PyTorch
-versions.  One flag set serves every source: the attention kernels are
-held to a tolerance, not to bits, and write their inner products with
-explicit `fmaf`, so the flag costs them only the contractions they do
-not spell out (`tools/attention_fmad_cost.py` times both builds).
+versions.  One flag set serves every source: the attention and SSD
+kernels are held to a tolerance, not to bits, and write their inner
+products with explicit `fmaf`, so the flag costs them only the
+contractions they do not spell out (`tools/attention_fmad_cost.py`
+times both builds of the attention kernels).
 
 `build(name)` compiles one source if its library is missing;
 `build_all()` starts one nvcc for each source at once and waits for
@@ -39,6 +40,7 @@ SOURCES = {
     "sched_score": KERNELS_DIR / "sched_score" / "sched_score.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
     "decode_attention": KERNELS_DIR / "decode_attention" / "decode_attention.cu",
+    "ssd_scan": KERNELS_DIR / "ssd_scan" / "ssd_scan.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

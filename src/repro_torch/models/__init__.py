@@ -1,6 +1,8 @@
-"""Model substrate of the port: the dense decoder and its serving entry
-points (counterpart of `repro.models`)."""
+"""Model substrate of the port: the dense, state-space and hybrid
+decoders and their serving entry points (counterpart of
+`repro.models`)."""
 from repro_torch.models.attention import KVCache  # noqa: F401
+from repro_torch.models.blocks import LayerCache  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
     Model,
     decode_step,
@@ -8,3 +10,4 @@ from repro_torch.models.model import (  # noqa: F401
     init_model,
     prefill,
 )
+from repro_torch.models.ssm import SSMState, init_ssm_state  # noqa: F401

@@ -7,9 +7,14 @@ two serving entry points
   * prefill     : logits for the prompt's last position + decode caches
   * decode_step : one token against the caches (updated in place)
 
-Caches are a list with one `KVCache` per layer: a compact ring of size
-`min(window, max_seq)` for windowed archs, otherwise a linear buffer of
-`max_seq` positions.  `forward_train` and `lm_loss` come with the
+Caches are a list with one `LayerCache` per layer: the layer's
+`KVCache` (attention and hybrid layers; a compact ring of size
+`min(window, max_seq)` for windowed dense archs, otherwise a linear
+buffer of `max_seq` positions, which hybrid archs keep so that their
+global layers see every position) and its `SSMState` (ssm and hybrid
+layers), the other None.  Archs without RoPE (Mamba2) add absolute
+sinusoidal positions to the embeddings, in prefill and at the true
+position in decode.  `forward_train` and `lm_loss` come with the
 training slice (ROADMAP queue A9).
 """
 from __future__ import annotations
@@ -20,9 +25,11 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.attention import KVCache, cache_valid, init_cache
-from repro_torch.models.blocks import Block, layer_window
+from repro_torch.models.blocks import Block, LayerCache, layer_window
 from repro_torch.models.common import Dense, dtype_of, normal_, param
 from repro_torch.models.norms import Norm
+from repro_torch.models.rope import sinusoidal_embed
+from repro_torch.models.ssm import SSM, init_ssm_state
 
 
 class Model(nn.Module):
@@ -54,8 +61,10 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
     `init_model` draws them: every dense weight normal * 1/sqrt(in) (the
     attention out-projection normal * 1/sqrt(H*hd) / sqrt(2L)), the
     embedding and head normal * 1/sqrt(d_model), biases 0, norm scales
-    1.  Draws come from `generator` on its own device (a CUDA generator
-    draws a full-width model on the card); the numbers differ from
+    1; the SSM mixer's `conv_w` normal * 1/sqrt(conv_width) and its
+    `A_log`, `D`, `dt_bias` and `conv_b` as `SSM` sets them.  Draws come
+    from `generator` on its own device (a CUDA generator draws a
+    full-width model on the card); the numbers differ from
     `jax.random`'s, so parity tests carry the reference's parameters
     over with `params_from_jax` instead."""
     model = Model(cfg, device)
@@ -65,17 +74,23 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
     for mod in model.modules():
         if isinstance(mod, Dense):
             normal_(mod.w, g, mod.init_scale)
+        elif isinstance(mod, SSM):
+            normal_(mod.conv_w, g, mod.conv_w_scale)
     if model.head is not None:
         normal_(model.head, g, scale)
     return model
 
 
 def _embed(model: Model, tokens, pos0: int = 0):
-    """tokens: (B, S) integer ids -> (h (B, S, D), positions (B, S))."""
+    """tokens: (B, S) integer ids at positions pos0.. -> (h (B, S, D),
+    positions (B, S)), with sinusoidal positions added when the arch has
+    no RoPE."""
     h = model.embed[tokens]
     B, S = tokens.shape
     positions = (pos0 + torch.arange(S, dtype=torch.int32,
                                      device=tokens.device)).expand(B, S)
+    if not model.cfg.rope:  # MusicGen-style absolute positions
+        h = h + sinusoidal_embed(positions, model.cfg.d_model, h.dtype)
     return h, positions
 
 
@@ -104,13 +119,25 @@ def _uses_ring(cfg: ModelConfig) -> bool:
     return cfg.sliding_window > 0 and cfg.arch_type != "hybrid"
 
 
+def _has_kv(cfg: ModelConfig) -> bool:
+    return cfg.arch_type != "ssm"
+
+
+def _has_ssm(cfg: ModelConfig) -> bool:
+    return cfg.arch_type in ("ssm", "hybrid")
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                device=DEFAULT_DEVICE) -> list[KVCache]:
-    """Empty decode caches, one `KVCache` per layer."""
+                device=DEFAULT_DEVICE) -> list[LayerCache]:
+    """Empty decode caches, one `LayerCache` per layer."""
     dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
     window = cfg.sliding_window if _uses_ring(cfg) else 0
-    return [init_cache(cfg, batch, max_seq, window, dtype_of(cfg.dtype), dev)
-            for _ in range(cfg.n_layers)]
+    return [LayerCache(
+        init_cache(cfg, batch, max_seq, window, dtype, dev)
+        if _has_kv(cfg) else None,
+        init_ssm_state(cfg, batch, dtype, dev) if _has_ssm(cfg) else None)
+        for _ in range(cfg.n_layers)]
 
 
 @torch.no_grad()
@@ -121,26 +148,28 @@ def prefill(model: Model, tokens, max_seq: int, impl: str = "kernel"):
     h, positions = _embed(model, tokens)
     S = h.shape[1]
     ring = _uses_ring(cfg)
-    if not ring and S > max_seq:
+    if _has_kv(cfg) and not ring and S > max_seq:
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
     dtype = dtype_of(cfg.dtype)
     caches = []
     for i, blk in enumerate(model.blocks):
-        h, (k, v) = blk.prefill(h, positions, layer_window(cfg, i), impl)
-        if ring:
-            w = min(cfg.sliding_window, max_seq)
-            k, v = _ring_from_linear(k, S, w), _ring_from_linear(v, S, w)
-        else:
-            pad = (0, 0, 0, 0, 0, max_seq - S)
-            k = torch.nn.functional.pad(k, pad)
-            v = torch.nn.functional.pad(v, pad)
-        caches.append(KVCache(k.to(dtype).contiguous(),
-                              v.to(dtype).contiguous()))
+        h, kv, st = blk.prefill(h, positions, layer_window(cfg, i), impl)
+        if kv is not None:
+            k, v = kv
+            if ring:
+                w = min(cfg.sliding_window, max_seq)
+                k, v = _ring_from_linear(k, S, w), _ring_from_linear(v, S, w)
+            else:
+                pad = (0, 0, 0, 0, 0, max_seq - S)
+                k = torch.nn.functional.pad(k, pad)
+                v = torch.nn.functional.pad(v, pad)
+            kv = KVCache(k.to(dtype).contiguous(), v.to(dtype).contiguous())
+        caches.append(LayerCache(kv, st))
     return _head(model, h[:, -1:]), caches
 
 
 @torch.no_grad()
-def decode_step(model: Model, token, pos: int, caches: list[KVCache],
+def decode_step(model: Model, token, pos: int, caches: list[LayerCache],
                 impl: str = "kernel"):
     """One decode step.  token: (B, 1) ids; pos: its absolute position (a
     host int, so the step needs no read-back); caches: as `prefill`
@@ -148,12 +177,15 @@ def decode_step(model: Model, token, pos: int, caches: list[KVCache],
     caches)."""
     cfg = model.cfg
     pos = int(pos)
-    h, _ = _embed(model, token)
+    h, _ = _embed(model, token, pos)
     valid = {}  # one mask per (window, cache length), shared by the layers
     for i, (blk, cache) in enumerate(zip(model.blocks, caches)):
         w = layer_window(cfg, i)
-        key = (w, cache.k.shape[1])
-        if key not in valid:
-            valid[key] = cache_valid(pos, key[1], w, h.device)
-        h, _ = blk.decode(h, pos, cache, w, valid[key], impl)
+        mask = None
+        if cache.kv is not None:
+            key = (w, cache.kv.k.shape[1])
+            if key not in valid:
+                valid[key] = cache_valid(pos, key[1], w, h.device)
+            mask = valid[key]
+        h, _ = blk.decode(h, pos, cache, w, mask, impl)
     return _head(model, h), caches

@@ -1,5 +1,6 @@
 """Rotary position embeddings with partial-rotary support (StableLM
-rotates 25% of the head dim).  Counterpart of `repro.models.rope`:
+rotates 25% of the head dim), and the absolute sinusoidal embeddings of
+archs without RoPE (Mamba2).  Counterpart of `repro.models.rope`:
 `rot_dim = int(hd * fraction) // 2 * 2`, and the rotated pairs are
 interleaved (`0::2` with `1::2`), not the half-split convention."""
 from __future__ import annotations
@@ -29,3 +30,14 @@ def apply_rope(x, positions, fraction: float = 1.0, theta: float = 10000.0):
     o2 = x2 * cos + x1 * sin
     out = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
     return torch.cat([out, x[..., rot_dim:]], dim=-1)
+
+
+def sinusoidal_embed(positions, d_model: int, dtype=torch.float32):
+    """Absolute sinusoidal position embeddings (MusicGen-style):
+    positions (..., S) -> (..., S, d_model), sines then cosines, computed
+    in float32 and cast to `dtype`."""
+    half = d_model // 2
+    inv = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions[..., None].float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

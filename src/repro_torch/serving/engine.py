@@ -7,7 +7,9 @@ with an explicit generator seeded from `seed`.  Once a sequence emits
 `eos_id`, every later token of it is `eos_id`.  The loop stays on the
 device: positions are host ints known in advance, and no step reads a
 value back, so the host only waits when the caller reads the tokens.
-Attention always goes through the kernels' wrappers.  The reference's
+Attention and the SSD step always go through the kernels' wrappers;
+the per-layer caches (`LayerCache`: KV cache and/or SSM state) are
+updated in place by every step.  The reference's
 `prefill_step`/`serve_step` exist for its ahead-of-time dry-run
 launcher, which the port does not have; callers use `prefill` and
 `decode_step` from `repro_torch.models`.
@@ -27,7 +29,7 @@ from repro_torch.models.model import Model
 class GenState(NamedTuple):
     tokens: torch.Tensor       # (B, n_new) int32 generated ids
     pos: int                   # absolute position of the next input token
-    caches: list               # one KVCache per layer
+    caches: list               # one LayerCache per layer (KV and/or SSM)
     done: torch.Tensor         # (B,) bool
     generator: torch.Generator | None
 

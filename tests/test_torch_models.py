@@ -1,10 +1,10 @@
 """The port's model substrate against the JAX reference, on the CPU.
 
-The reference's `init_model` parameters for `stablelm-smoke` and
-`starcoder2-smoke` are carried across with
-`repro_torch.bridge.params_from_jax`, and both packages get the same
-numpy inputs.  Held module by module (norms, RoPE, MLP, attention) and
-as a whole:
+The reference's `init_model` parameters for `stablelm-smoke`,
+`starcoder2-smoke`, `mamba2-smoke` and `hymba-smoke` are carried across
+with `repro_torch.bridge.params_from_jax`, and both packages get the
+same numpy inputs.  Held module by module (norms, RoPE, MLP, attention;
+the SSM mixer in `tests/test_torch_ssm.py`) and as a whole:
 
 * `prefill` logits and caches against the reference's
   `prefill(impl="xla")` (its model-level Pallas prefill cannot run: the
@@ -14,6 +14,10 @@ as a whole:
   interpret-mode Pallas decode kernel) and `(impl="xla")` over several
   positions, through starcoder2's ring cache wrapping around its smoke
   window of 64.
+
+The state-space and hybrid models' prefill, decode and bfloat16 cases
+are in `tests/test_torch_ssm_models.py`; the configs and cache layouts
+of all four archs are held here.
 
 Tolerance in float32: 1e-4 absolute on logits (of order 1; the two
 packages sum their float32 products in different orders) and 2e-5 on
@@ -44,8 +48,14 @@ from repro.models.rope import apply_rope as ref_apply_rope
 from repro_torch.bridge import params_from_jax
 from repro_torch.config import ServeConfig
 from repro_torch.configs import get, get_smoke
-from repro_torch.models import decode_step, init_caches, prefill
-from repro_torch.models.attention import KVCache
+from repro_torch.models import (
+    KVCache,
+    LayerCache,
+    SSMState,
+    decode_step,
+    init_caches,
+    prefill,
+)
 from repro_torch.models.blocks import layer_window
 from repro_torch.models.mlp import MLP
 from repro_torch.models.norms import Norm
@@ -54,6 +64,7 @@ from repro_torch.models.rope import apply_rope
 torch.set_num_threads(2)
 
 ARCHS = ["stablelm-1.6b", "starcoder2-3b"]
+SSM_ARCHS = ["mamba2-780m", "hymba-1.5b"]
 LOGIT_TOL = 1e-4
 MODULE_TOL = 2e-5
 BF16_LOGIT_TOL = 0.15
@@ -89,9 +100,9 @@ def np32(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mamba2-780m"])
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS + ["arctic-480b"])
 def test_config_fields_equal_the_reference(arch):
-    if arch == "mamba2-780m":
+    if arch == "arctic-480b":   # not ported: MoE blocks
         with pytest.raises(KeyError, match="ROADMAP"):
             get(arch)
         return
@@ -100,6 +111,8 @@ def test_config_fields_equal_the_reference(arch):
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
         assert mine.head_dim == ref.head_dim
         assert mine.padded_vocab == ref.padded_vocab
+        assert mine.d_inner == ref.d_inner
+        assert mine.n_ssm_heads == ref.n_ssm_heads
 
 
 @pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
@@ -196,11 +209,40 @@ def test_attention_prefill_and_decode(arch):
         np.testing.assert_allclose(np32(gc.k), np32(wc.k), atol=MODULE_TOL)
 
 
-def _ref_caches_as_port(caches):
+def _layer(tree, i):
+    return torch.from_numpy(np.asarray(tree)[i].copy())
+
+
+def ref_caches_as_port(caches, n_layers):
     """The reference's stacked caches as the port's per-layer list."""
-    k, v = np.asarray(caches["kv"].k), np.asarray(caches["kv"].v)
-    return [KVCache(torch.from_numpy(k[i].copy()),
-                    torch.from_numpy(v[i].copy())) for i in range(len(k))]
+    out = []
+    for i in range(n_layers):
+        kv = st = None
+        if "kv" in caches:
+            kv = KVCache(_layer(caches["kv"].k, i), _layer(caches["kv"].v, i))
+        if "ssm" in caches:
+            st = SSMState(_layer(caches["ssm"]["ssd"], i),
+                          _layer(caches["ssm"]["conv"], i))
+        out.append(LayerCache(kv, st))
+    return out
+
+
+def assert_caches_equal(got, want, n_layers, tol):
+    """The port's per-layer caches against the reference's stacked ones
+    (as `ref_caches_as_port` lays them out); `tests/test_torch_ssm_models.py`
+    holds the SSM and hybrid caches with it."""
+    want = ref_caches_as_port(want, n_layers)
+    assert len(got) == n_layers
+    for g, w in zip(got, want):
+        for part in ("kv", "ssm"):
+            gp, wp = getattr(g, part), getattr(w, part)
+            assert (gp is None) == (wp is None), part
+            if gp is None:
+                continue
+            for gt, wt in zip(gp, wp):
+                assert gt.shape == wt.shape and gt.dtype == wt.dtype
+                np.testing.assert_allclose(np32(gt), np32(wt), atol=tol,
+                                           rtol=tol, err_msg=part)
 
 
 @pytest.mark.parametrize("arch,S,max_seq", [
@@ -222,9 +264,9 @@ def test_prefill_matches_reference(arch, S, max_seq):
     wv = np.asarray(want_caches["kv"].v)
     assert len(got_caches) == pcfg.n_layers
     for i, c in enumerate(got_caches):
-        assert c.k.shape == wk[i].shape
-        np.testing.assert_allclose(np32(c.k), wk[i], atol=LOGIT_TOL)
-        np.testing.assert_allclose(np32(c.v), wv[i], atol=LOGIT_TOL)
+        assert c.ssm is None and c.kv.k.shape == wk[i].shape
+        np.testing.assert_allclose(np32(c.kv.k), wk[i], atol=LOGIT_TOL)
+        np.testing.assert_allclose(np32(c.kv.v), wv[i], atol=LOGIT_TOL)
 
 
 @pytest.mark.parametrize("arch,S,steps", [
@@ -238,7 +280,7 @@ def test_decode_matches_reference(arch, S, steps):
     _, ref_caches = ref_prefill(params, rcfg, jnp.asarray(toks[:, :S]),
                                 max_seq, impl="xla")
     caches = {impl: ref_caches for impl in ("xla", "pallas")}
-    port_caches = _ref_caches_as_port(ref_caches)
+    port_caches = ref_caches_as_port(ref_caches, pcfg.n_layers)
     for i in range(S, S + steps):
         tok = toks[:, i:i + 1]
         got, port_caches = decode_step(model, torch.from_numpy(tok), i,
@@ -251,21 +293,25 @@ def test_decode_matches_reference(arch, S, steps):
                                        err_msg=f"{impl} position {i}")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS)
 def test_init_caches_match_reference_layout(arch):
     _, rcfg, _, pcfg = models(arch)
-    want = ref_init_caches(rcfg, 3, 96)["kv"]
+    want = ref_caches_as_port(ref_init_caches(rcfg, 3, 96), pcfg.n_layers)
     got = init_caches(pcfg, 3, 96, device="cpu")
     assert len(got) == pcfg.n_layers
-    for c in got:
-        assert c.k.shape == want.k.shape[1:] and c.v.shape == want.v.shape[1:]
-        assert c.k.dtype == torch.float32 and not c.k.any()
+    for g, w in zip(got, want):
+        for part in ("kv", "ssm"):
+            gp, wp = getattr(g, part), getattr(w, part)
+            assert (gp is None) == (wp is None), part
+            for gt, wt in zip(gp or (), wp or ()):
+                assert gt.shape == wt.shape and gt.dtype == wt.dtype
+                assert not gt.any()
 
 
 def test_unported_blocks_raise_naming_the_roadmap():
     _, _, _, pcfg = models("stablelm-1.6b")
     from repro_torch.models.model import Model
-    for kind in ("ssm", "hybrid", "vlm"):
+    for kind in ("vlm", "moe"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(dataclasses.replace(pcfg, arch_type=kind), device="cpu")
 

@@ -1,7 +1,9 @@
 """The port's serving engine against the JAX reference, on the CPU.
 
 Greedy `generate` of the port must equal the reference's `generate`
-token for token on the smoke configs in float32, with the reference's
+token for token on the smoke configs in float32 (the dense
+`stablelm-smoke` and `starcoder2-smoke`, the state-space `mamba2-smoke`
+and the hybrid `hymba-smoke`), with the reference's
 `init_model` parameters carried across by `params_from_jax`
 (`ServeConfig(max_seq=96)`, 12 new tokens, as `tests/test_substrates.py`
 runs the reference engine).  Where a greedy token differs, the test
@@ -81,6 +83,10 @@ def assert_same_tokens(port, ref, model, prompts, max_seq):
     ("stablelm-1.6b", 8),
     ("starcoder2-3b", 8),
     ("starcoder2-3b", 60),    # prompt + 12 tokens wraps the ring of 64
+    ("mamba2-780m", 8),       # one short chunk
+    ("mamba2-780m", 40),      # a padded second chunk
+    ("hymba-1.5b", 8),
+    ("hymba-1.5b", 26),       # prompt + 12 tokens passes the window of 32
 ])
 def test_greedy_generate_matches_reference(arch, S_p):
     params, rcfg, model, pcfg = models(arch)
@@ -103,7 +109,26 @@ def test_blackbox_submit_matches_reference():
     assert_same_tokens(got[None], np.asarray(want)[None], model, p[None], 96)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_blackbox_serves_ssm_and_hybrid_models(arch):
+    """`BlackBoxProvider` works unchanged over a state-space or hybrid
+    model: the same answers as the reference's provider, and a second
+    request starts from fresh state (no SSM state leaks between
+    requests)."""
+    params, rcfg, model, pcfg = models(arch)
+    p = prompt(8, (33,), pcfg.vocab)
+    want = RefBlackBoxProvider(params, rcfg, RefServeConfig(max_seq=96)
+                               ).submit(p, 7)
+    provider = BlackBoxProvider(model, ServeConfig(max_seq=96), device="cpu")
+    got = provider.submit(p, 7)
+    assert got.shape == (7,) and got.dtype == np.int32
+    assert_same_tokens(got[None], np.asarray(want)[None], model, p[None], 96)
+    provider.submit(prompt(9, (5,), pcfg.vocab), 3)
+    np.testing.assert_array_equal(provider.submit(p, 7), got)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b",
+                                  "mamba2-780m"])
 def test_tokens_after_eos_are_eos(arch):
     params, rcfg, model, pcfg = models(arch)
     p = prompt(4, (2, 8), pcfg.vocab)
