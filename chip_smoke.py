@@ -40,11 +40,16 @@ Phases:
      device's busy time and idle share;
   6. attention_kernels: `flash_attention` and `decode_attention` against
      their plain versions on the card at StableLM-2-1.6B's geometry
-     (H = KV = 32, hd = 64, bf16) and StarCoder2-3B's (H = 24, KV = 2,
-     hd = 128, windows 64 and 4096), plus a float32 case each; times of
-     the kernel, its plain version and
+     (H = KV = 32, hd = 64, bf16; flash also at B = 4 and with fewer
+     queries than keys), StarCoder2-3B's (H = 24, KV = 2, hd = 128,
+     windows 64 and 4096), Hymba-1.5B's prefill past its window (flash:
+     H = 25, KV = 5, hd = 64, window 1024) and hd = 32, plus float32
+     cases; bf16 flash also within one bf16 ulp of its rounding's
+     emulation (P rounded to bf16 before P V); times of the kernel, its
+     plain version and
      `torch.nn.functional.scaled_dot_product_attention` (the library
-     yardstick, never called by the port), beside the bound;
+     yardstick, never called by the port), beside the bound; flash's
+     earlier CUDA-core times beside its present ones;
   7. serve: `stablelm-1.6b` at full width in bf16 with seeded random
      weights answers 6 requests through `BlackBoxProvider.submit` and
      one batch of 4 through `generate` (greedy, max_seq 2048); the
@@ -525,21 +530,51 @@ def phase_scale(torch, dev, kernels):
 # ---------------------------------------------------------------------------
 
 ATTN_TOL = {"bfloat16": 3e-2, "float32": 3e-5}   # atol = rtol, as the CPU tests
+# flash_attention's bf16 body against its rounding's emulation
+# (`flash_attention_mma_ref`): both round the output to bf16 from float32
+# values that differ only in the order of float32 sums, the exponential
+# and the rare weight that rounds the other way to bf16, so they lie one
+# bf16 ulp apart at most (rtol 2^-7 covers one ulp at any magnitude);
+# atol covers outputs near 0
+MMA_TOL = dict(atol=1e-3, rtol=2.0 ** -7)
 FA_SRC = "src/repro_torch/kernels/flash_attention/flash_attention.cu"
 DA_SRC = "src/repro_torch/kernels/decode_attention/decode_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:78"
 DA_REPLACES = "src/repro/kernels/decode_attention/decode_attention.py:66"
+# (H, KV, hd) of each geometry: StableLM-2-1.6B, StarCoder2-3B,
+# Hymba-1.5B's attention heads, and a small hd = 32 one
+ATTN_GEOMETRY = {"stablelm": (32, 32, 64), "starcoder2": (24, 2, 128),
+                 "hymba": (25, 5, 64), "hd32": (8, 2, 32)}
 # the kernels line carries the serve run's shapes: a 1024-token prompt,
 # and a decode step halfway through the 2048-slot cache
-FA_LINE = ("stablelm", 1024, 0)
+FA_LINE = ("stablelm", 1, 1024, 1024, 0)
 DA_LINE = ("stablelm", 2048, 1024)
-# flash: (geometry, Sq, window, dtype), Skv = Sq, B = 1
-FLASH_CASES = ([("stablelm", s, 0, "bfloat16") for s in (1, 37, 512, 1024, 2048)]
-               + [("starcoder2", 2048, 64, "bfloat16"),
-                  ("starcoder2", 2048, 4096, "bfloat16"),
-                  ("starcoder2", 5000, 4096, "bfloat16"),
-                  ("stablelm", 512, 0, "float32"),
-                  ("starcoder2", 700, 64, "float32")])
+# flash: (geometry, B, Sq, Skv, window, dtype); every path of the bf16
+# body: the serve runs' prompts, their B = 4 batch, fewer queries than
+# keys, hd 32, 64 and 128, windows that bite and Hymba's prefill past
+# its window
+FLASH_CASES = ([("stablelm", 1, s, s, 0, "bfloat16")
+                for s in (1, 37, 512, 1024, 2048)]
+               + [("stablelm", 4, 256, 256, 0, "bfloat16"),
+                  ("stablelm", 1, 37, 100, 0, "bfloat16"),
+                  ("hd32", 1, 130, 130, 50, "bfloat16"),
+                  ("hymba", 1, 1536, 1536, 1024, "bfloat16"),
+                  ("starcoder2", 1, 2048, 2048, 64, "bfloat16"),
+                  ("starcoder2", 1, 2048, 2048, 4096, "bfloat16"),
+                  ("starcoder2", 1, 5000, 5000, 4096, "bfloat16"),
+                  ("stablelm", 1, 512, 512, 0, "float32"),
+                  ("starcoder2", 1, 700, 700, 64, "float32"),
+                  ("hd32", 1, 130, 130, 50, "float32")])
+# device ms of this kernel's earlier bf16 body, which converted its
+# inputs to float32 and ran both products on the CUDA cores (PERF.md
+# section 6, H100 80GB HBM3, 700 W), printed beside the present times
+FLASH_CUDA_CORE_MS = {("stablelm", 1, 1, 1, 0): 0.0135,
+                      ("stablelm", 1, 37, 37, 0): 0.0163,
+                      ("stablelm", 1, 512, 512, 0): 0.0990,
+                      ("stablelm", 1, 1024, 1024, 0): 0.26371,
+                      ("stablelm", 1, 2048, 2048, 0): 0.8556,
+                      ("starcoder2", 1, 2048, 2048, 64): 0.2040,
+                      ("starcoder2", 1, 2048, 2048, 4096): 1.5507}
 # decode: (geometry, B, S, valid prefix length or "ring", dtype)
 DECODE_CASES = ([("stablelm", 1, s, n, "bfloat16")
                  for s in (128, 1000, 2048) for n in (1, s // 2, s)]
@@ -561,11 +596,51 @@ def attn_close(torch, got, want, dtype):
     return float(err.max()), ok
 
 
+def mma_close(torch, got, want):
+    """Max abs error, the largest share of MMA_TOL that it uses, and
+    whether |got - want| <= atol + rtol * |want| everywhere."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    share = err / (MMA_TOL["atol"] + MMA_TOL["rtol"] * w.abs())
+    ok = bool((share <= 1).all()) and bool(torch.isfinite(g).all())
+    return float(err.max()), float(share.max()), ok
+
+
 def flash_pairs(S, window):
-    """Valid (query, key) pairs of causal attention over S positions."""
+    """Valid (query, key) pairs of causal attention over S query
+    positions (keys past the last query are never valid)."""
     if window <= 0 or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_work(B, Sq, Skv, H, KV, hd, window, elt=2):
+    """Bytes (q read once, the output written once, k and v read once
+    over the keys a stored row can attend to: the first min(Sq, Skv))
+    and operations (4 hd a valid pair and head) of one flash_attention
+    call."""
+    n_keys = min(Sq, Skv)
+    n_bytes = 2 * B * Sq * H * hd * elt + 2 * B * n_keys * KV * hd * elt
+    return n_bytes, 4 * hd * H * B * flash_pairs(Sq, window)
+
+
+def sdpa_flash(torch, q, k, v, window):
+    """`scaled_dot_product_attention` computing what flash_attention
+    does, on (B, S, H, hd) tensors: is_causal (whose diagonal starts at
+    key 0 for Sq < Skv too) where no window bites, else the band as a
+    mask; the yardstick, never called by the port."""
+    import torch.nn.functional as F
+
+    Sq, Skv, H, KV = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if not 0 < window < Sq:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    mask = (j <= i) & (j > i - window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
 
 
 def phase_attention_kernels(torch, dev):
@@ -578,7 +653,6 @@ def phase_attention_kernels(torch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    geo = {"stablelm": (32, 32, 64), "starcoder2": (24, 2, 128)}
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dts[dtype])
@@ -595,34 +669,26 @@ def phase_attention_kernels(torch, dev):
         rows.append(row)
         return row
 
-    for g, S, window, dtype in FLASH_CASES:
-        H, KV, hd = geo[g]
-        q = rand((1, S, H, hd), dtype)
-        k, v = rand((1, S, KV, hd), dtype), rand((1, S, KV, hd), dtype)
-        case = dict(geometry=g, B=1, Sq=S, H=H, KV=KV, hd=hd,
+    before = []
+    for g, B, Sq, Skv, window, dtype in FLASH_CASES:
+        H, KV, hd = ATTN_GEOMETRY[g]
+        q = rand((B, Sq, H, hd), dtype)
+        k, v = rand((B, Skv, KV, hd), dtype), rand((B, Skv, KV, hd), dtype)
+        case = dict(geometry=g, B=B, Sq=Sq, Skv=Skv, H=H, KV=KV, hd=hd,
                     window=window, dtype=dtype)
         got = fa.flash_attention(q, k, v, window=window)
         want = fa_ref.flash_attention_ref(q, k, v, window=window)
         timed = dtype == "bfloat16"
         timing = {}
         if timed:
-            elt = 2
-            n_bytes = 2 * S * H * hd * elt + 2 * S * KV * hd * elt
-            n_ops = 4 * hd * H * flash_pairs(S, window)
-            t_b, by = bound(n_bytes, n_ops, PEAK_BF16_OPS_PER_S)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if window > 0 and window < S:
-                mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-                mask &= ~torch.ones(S, S, dtype=torch.bool,
-                                    device=dev).tril(-window)
-
-                def lib():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
-            else:
-                def lib():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+            e, share, ok = mma_close(torch, got, fa_ref.flash_attention_mma_ref(
+                q, k, v, window=window))
+            check(ok, f"flash_attention {case}: differs from its bf16 "
+                      f"rounding's emulation (max abs err {e}, {share} of "
+                      f"the tolerance)")
+            t_b, by = bound(*flash_work(B, Sq, Skv, H, KV, hd, window),
+                            PEAK_BF16_OPS_PER_S)
+            lib = sdpa_flash(torch, q, k, v, window)
             lib_err = float((lib().transpose(1, 2).float()
                              - want.float()).abs().max())
             timing = dict(
@@ -631,13 +697,18 @@ def phase_attention_kernels(torch, dev):
                 plain_ms=device_ms(torch, lambda: fa_ref.flash_attention_ref(
                     q, k, v, window=window), reps=10),
                 library_ms=device_ms(torch, lib), library_max_abs_err=lib_err,
-                bound_ms=t_b, bound_by=by)
+                bound_ms=t_b, bound_by=by, mma_max_abs_err=e,
+                mma_tolerance_share=share)
         row = record("flash_attention", case, got, want, dtype, **timing)
-        if (g, S, window) == FA_LINE and timed:
+        key = (g, B, Sq, Skv, window)
+        if timed:
+            before.append(dict(case, ms=row["ms"], cuda_core_ms=(
+                FLASH_CUDA_CORE_MS.get(key, "not measured"))))
+        if key == FA_LINE and timed:
             line["flash_attention"] = row
 
     for g, B, S, n, dtype in DECODE_CASES:
-        H, KV, hd = geo[g]
+        H, KV, hd = ATTN_GEOMETRY[g]
         q = rand((B, H, hd), dtype)
         k, v = rand((B, S, KV, hd), dtype), rand((B, S, KV, hd), dtype)
         if n == "ring":   # a ring cache mid-wrap: every third slot stale
@@ -679,8 +750,10 @@ def phase_attention_kernels(torch, dev):
     torch.cuda.synchronize()
     for row in rows:
         emit(phase="attention_kernel", **row)
+    for row in before:
+        emit(phase="flash_attention_vs_cuda_core", **row)
     emit(phase="attention_kernels", cases=len(rows),
-         max_abs_err=err, tolerance=ATTN_TOL)
+         max_abs_err=err, tolerance=ATTN_TOL, mma_tolerance=MMA_TOL)
     out = {}
     for name, src, rep in (("flash_attention", FA_SRC, FA_REPLACES),
                            ("decode_attention", DA_SRC, DA_REPLACES)):

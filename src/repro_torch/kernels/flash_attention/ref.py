@@ -31,3 +31,49 @@ def flash_attention_ref(q, k, v, *, window: int = 0):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", w, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+
+
+def flash_attention_mma_ref(q, k, v, *, window: int = 0, bk: int = 64):
+    """The rounding of `flash_attention.cu`'s bfloat16 body, in plain
+    PyTorch: the online softmax over `bk`-key tiles in the log2 domain,
+    S from the bf16 operands (exact products, summed in float64 and
+    rounded to float32), P rounded to bf16 before P V, O and the row sums
+    (of the unrounded P) in float32, masked scores -inf and a row with no
+    valid key yet subtracting 0, the result rounded to bf16.  The card's
+    ex2.approx, its fused multiply-add and its order of float32 sums are
+    not emulated: the kernel's output lies within one bf16 ulp of this
+    one's, where the float32 plain version above lies up to several ulps
+    away.  Same shapes as `flash_attention_ref`; q, k, v in bf16."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G, dev = H // KV, q.device
+    qd = q.double().reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)
+    kd = k.double().permute(0, 2, 1, 3)[:, :, None]   # (B, KV, 1, Skv, hd)
+    vd = v.double().permute(0, 2, 1, 3)[:, :, None]
+    # as the wrapper and the kernel form it: float32 scale times log2(e)
+    scale_log2 = (torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32)
+                  * torch.tensor(LOG2E, dtype=torch.float32)).to(dev)
+    m = torch.full((B, KV, G, Sq, 1), -torch.inf, device=dev)
+    l = torch.zeros_like(m)
+    o = torch.zeros(B, KV, G, Sq, hd, device=dev)
+    qi = torch.arange(Sq, device=dev)[:, None]
+    for k0 in range(0, Skv, bk):
+        kj = torch.arange(k0, min(k0 + bk, Skv), device=dev)[None, :]
+        valid = kj <= qi
+        if window > 0:
+            valid &= kj > qi - window
+        s = (qd @ kd[..., k0:k0 + bk, :].transpose(-1, -2)).float()
+        s = s.masked_fill(~valid, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        mu = torch.where(m_new == -torch.inf, torch.zeros_like(m_new), m_new)
+        corr = torch.exp2(m - mu)
+        p = torch.exp2(s * scale_log2 - mu)
+        l = l * corr + p.sum(-1, keepdim=True)
+        pv = p.to(torch.bfloat16).double() @ vd[..., k0:k0 + bk, :]
+        o = o * corr + pv.float()
+        m = m_new
+    out = o / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(torch.bfloat16)

@@ -36,6 +36,7 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref as port_decode_ref,
 )
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_mma_ref
 
 torch.set_num_threads(2)
 
@@ -91,6 +92,13 @@ FLASH_GRID = [
     (1, 512, 4, 2, 64, 200, 128, 128),   # sliding window
     (1, 768, 6, 3, 32, 0, 256, 256),     # non-pow2 heads
 ]
+# lengths that only the port accepts (no block divisibility)
+FLASH_RAGGED = [
+    (1, 37, 37, 4, 2, 64, 0),      # a ragged prompt
+    (2, 37, 100, 8, 2, 32, 0),     # fewer queries than keys
+    (1, 130, 130, 6, 3, 32, 50),   # ragged, windowed
+    (1, 1, 1, 4, 4, 128, 0),       # one token
+]
 DECODE_GRID = [
     (1, 1024, 8, 8, 64, 1000, 256),
     (4, 2048, 8, 2, 64, 1, 512),         # single valid entry
@@ -113,12 +121,7 @@ class TestFlashAttention:
         np.testing.assert_allclose(f32(port), f32(oracle), **TOLS[dtype])
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window", [
-        (1, 37, 37, 4, 2, 64, 0),      # a ragged prompt
-        (2, 37, 100, 8, 2, 32, 0),     # fewer queries than keys
-        (1, 130, 130, 6, 3, 32, 50),   # ragged, windowed
-        (1, 1, 1, 4, 4, 128, 0),       # one token
-    ])
+    @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window", FLASH_RAGGED)
     def test_ragged_lengths(self, dtype, B, Sq, Skv, H, KV, hd, window):
         (jq, jk, jv), (tq, tk, tv) = inputs(
             1, [(B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)], dtype)
@@ -149,6 +152,29 @@ class TestFlashAttention:
         x = torch.zeros(1, 4, 2, 32)
         fa_ops.flash_attention(x, x, x)
         assert fa_ops.LAUNCHES["flash_attention"] == 0
+
+
+class TestFlashTensorCoreRounding:
+    """The card's bf16 body rounds P to bf16 before P V (2^-9 relative a
+    weight), which the float32 plain version does not; `chip_smoke.py`
+    holds the kernel to the plain version within TOLS["bfloat16"], and
+    to this rounding's emulation (`ref.flash_attention_mma_ref`) within
+    one bf16 ulp.  The emulation shows on the CPU that the rounding fits
+    the first bound at the reference's grid and the ragged shapes."""
+
+    @pytest.mark.parametrize(
+        "B,Sq,Skv,H,KV,hd,window",
+        [(B, S, S, H, KV, hd, w) for B, S, H, KV, hd, w, _, _ in FLASH_GRID]
+        + FLASH_RAGGED)
+    def test_fits_the_bf16_tolerance(self, B, Sq, Skv, H, KV, hd, window):
+        _, (tq, tk, tv) = inputs(
+            5, [(B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)],
+            "bfloat16")
+        emulated = flash_attention_mma_ref(tq, tk, tv, window=window)
+        plain = fa_ops.flash_attention(tq, tk, tv, window=window)
+        assert emulated.dtype == plain.dtype == torch.bfloat16
+        np.testing.assert_allclose(f32(emulated), f32(plain),
+                                   **TOLS["bfloat16"])
 
 
 class TestDecodeAttention:

@@ -14,14 +14,13 @@ through the same wrapper on the same inputs, in the order default,
 variant, variant, default (CUDA events, median of 60 calls each, as
 `chip_smoke.py` times them; each build's time is the mean of its two
 medians).  Both builds are held against the plain version within
-`chip_smoke.py`'s tolerance.  It prints the card's name and power limit,
-then one JSON line per shape.
+`chip_smoke.py`'s tolerance.  Flash runs at `chip_smoke.py`'s bf16
+`FLASH_CASES`.  It prints the card's name and power limit, then one JSON
+line per shape.
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -32,33 +31,9 @@ ENTRIES = {"flash_attention": ("flash_attention_fwd",),
            "decode_attention": ("decode_attention_fwd",
                                 "decode_attention_block",
                                 )}
-# (geometry, B, S, window) for flash; (geometry, B, S, valid) for decode
-FLASH_CASES = (("stablelm", 1, 512, 0), ("stablelm", 1, 1024, 0),
-               ("stablelm", 1, 2048, 0), ("starcoder2", 1, 2048, 64),
-               ("starcoder2", 1, 2048, 4096))
+# (geometry, B, S, valid) of decode
 DECODE_CASES = (("stablelm", 1, 2048, 1024), ("stablelm", 4, 2048, 300),
                 ("stablelm", 1, 2048, 2048), ("starcoder2", 1, 4096, 4096))
-GEOMETRY = {"stablelm": (32, 32, 64), "starcoder2": (24, 2, 128)}
-
-
-def build_variant(_build, name, flags):
-    out = OUT_DIR / f"lib{name}-fmad.so"
-    proc = subprocess.run([_build._nvcc(), *flags, "-o", str(out),
-                           str(_build.SOURCES[name])],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed for {name}:\n{proc.stdout}")
-    return out
-
-
-def bind_like(path, default, entries):
-    """`path` loaded with the entry points bound as in `default`."""
-    lib = ctypes.CDLL(str(path))
-    for fn in (*entries, "repro_cuda_error_string"):
-        getattr(lib, fn).argtypes = getattr(default, fn).argtypes
-        getattr(lib, fn).restype = getattr(default, fn).restype
-    return lib
 
 
 def main() -> None:
@@ -72,15 +47,9 @@ def main() -> None:
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from tools.flash_attention_ab import bind_like, card, nvcc
 
-    cs.check(torch.cuda.is_available(), "CUDA is not available")
-    dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-
+    dev = card(torch, cs)
     flags = [f for f in _build.NVCC_FLAGS if f != "-fmad=false"]
     cs.check(len(flags) == len(_build.NVCC_FLAGS) - 1,
              "-fmad=false is not among the build flags")
@@ -90,8 +59,9 @@ def main() -> None:
     libs = {}
     for name, mod in mods.items():
         default = mod._lib()
-        variant = bind_like(build_variant(_build, name, flags), default,
-                            ENTRIES[name])
+        out = OUT_DIR / f"lib{name}-fmad.so"
+        nvcc(_build, _build.SOURCES[name], out, flags)
+        variant = bind_like(out, default, ENTRIES[name])
         libs[name] = {"fmad_false": default, "fmad_true": variant}
 
     gen = torch.Generator(device=dev).manual_seed(99)
@@ -117,16 +87,18 @@ def main() -> None:
             ms_each=ms, cost_ratio=t["fmad_false"] / t["fmad_true"],
             max_abs_err=err)), flush=True)
 
-    for g, B, S, window in FLASH_CASES:
-        H, KV, hd = GEOMETRY[g]
-        q = rand((B, S, H, hd))
-        k, v = rand((B, S, KV, hd)), rand((B, S, KV, hd))
+    for g, B, Sq, Skv, window, dtype in cs.FLASH_CASES:
+        if dtype != "bfloat16":
+            continue
+        H, KV, hd = cs.ATTN_GEOMETRY[g]
+        q = rand((B, Sq, H, hd))
+        k, v = rand((B, Skv, KV, hd)), rand((B, Skv, KV, hd))
         measure("flash_attention",
-                dict(geometry=g, B=B, Sq=S, window=window),
+                dict(geometry=g, B=B, Sq=Sq, Skv=Skv, window=window),
                 lambda: fa.flash_attention(q, k, v, window=window),
                 fa_ref.flash_attention_ref(q, k, v, window=window))
     for g, B, S, n in DECODE_CASES:
-        H, KV, hd = GEOMETRY[g]
+        H, KV, hd = cs.ATTN_GEOMETRY[g]
         q = rand((B, H, hd))
         k, v = rand((B, S, KV, hd)), rand((B, S, KV, hd))
         valid = torch.arange(S, device=dev) < n
