@@ -42,14 +42,18 @@ Phases:
      their plain versions on the card at StableLM-2-1.6B's geometry
      (H = KV = 32, hd = 64, bf16; flash also at B = 4 and with fewer
      queries than keys), StarCoder2-3B's (H = 24, KV = 2, hd = 128,
-     windows 64 and 4096), Hymba-1.5B's prefill past its window (flash:
-     H = 25, KV = 5, hd = 64, window 1024) and hd = 32, plus float32
-     cases; bf16 flash also within one bf16 ulp of its rounding's
-     emulation (P rounded to bf16 before P V); times of the kernel, its
-     plain version and
-     `torch.nn.functional.scaled_dot_product_attention` (the library
-     yardstick, never called by the port), beside the bound; flash's
-     earlier CUDA-core times beside its present ones;
+     windows 64 and 4096), Hymba-1.5B's (H = 25, KV = 5, hd = 64; flash
+     past its window 1024; decode at its local ring cache past the
+     window, its global cache mid-decode and its batch of 4) and hd =
+     32, plus float32 cases (decode also with 32 query heads on one KV
+     head, at Hymba's batch of 4 and at StableLM's, whose splits run
+     the ring through 10 tiles) and a decode cache whose one valid slot
+     is the last; bf16 flash also within one bf16 ulp of its rounding's
+     emulation (P rounded to bf16 before P V), bf16 decode within one
+     bf16 ulp of the plain version (both round float32 once); times of the kernel, its plain
+     version and `torch.nn.functional.scaled_dot_product_attention`
+     (the library yardstick, never called by the port), beside the
+     bound; flash's earlier CUDA-core times beside its present ones;
   7. serve: `stablelm-1.6b` at full width in bf16 with seeded random
      weights answers 6 requests through `BlackBoxProvider.submit` and
      one batch of 4 through `generate` (greedy, max_seq 2048); the
@@ -537,14 +541,21 @@ ATTN_TOL = {"bfloat16": 3e-2, "float32": 3e-5}   # atol = rtol, as the CPU tests
 # bf16 ulp apart at most (rtol 2^-7 covers one ulp at any magnitude);
 # atol covers outputs near 0
 MMA_TOL = dict(atol=1e-3, rtol=2.0 ** -7)
+# decode_attention's bf16 body against the plain version: both compute
+# in float32 (TF32 off) and round once to bf16, so they lie one bf16
+# ulp apart at most; atol covers outputs near 0
+DECODE_TOL = dict(atol=1e-4, rtol=2.0 ** -7)
 FA_SRC = "src/repro_torch/kernels/flash_attention/flash_attention.cu"
 DA_SRC = "src/repro_torch/kernels/decode_attention/decode_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:78"
 DA_REPLACES = "src/repro/kernels/decode_attention/decode_attention.py:66"
 # (H, KV, hd) of each geometry: StableLM-2-1.6B, StarCoder2-3B,
-# Hymba-1.5B's attention heads, and a small hd = 32 one
+# Hymba-1.5B's attention heads, a small hd = 32 one, and multi-query
+# attention with more query heads a KV head (32) than a decode CTA
+# serves (16)
 ATTN_GEOMETRY = {"stablelm": (32, 32, 64), "starcoder2": (24, 2, 128),
-                 "hymba": (25, 5, 64), "hd32": (8, 2, 32)}
+                 "hymba": (25, 5, 64), "hd32": (8, 2, 32),
+                 "mqa": (32, 1, 64)}
 # the kernels line carries the serve run's shapes: a 1024-token prompt,
 # and a decode step halfway through the 2048-slot cache
 FA_LINE = ("stablelm", 1, 1024, 1024, 0)
@@ -575,15 +586,40 @@ FLASH_CUDA_CORE_MS = {("stablelm", 1, 1, 1, 0): 0.0135,
                       ("stablelm", 1, 2048, 2048, 0): 0.8556,
                       ("starcoder2", 1, 2048, 2048, 64): 0.2040,
                       ("starcoder2", 1, 2048, 2048, 4096): 1.5507}
-# decode: (geometry, B, S, valid prefix length or "ring", dtype)
+# decode: (geometry, B, S, valid prefix length, "ring" or "last", dtype);
+# "last": a ring cache holding one live slot, the last (S = 2048 makes it
+# the last key of a 32-key tile, the one the kernel's any-valid test of
+# a tile reads last); Hymba's cases as its serve run meets them: the
+# local ring cache past its window, the global cache of the 1536-token
+# prompt mid-decode, and the batch of 4 x 256 tokens; float32 at
+# StableLM's batch of 4 (10 live tiles in a split, so the 3-stage ring
+# refills its stages many times) and Hymba's (8 heads a CTA) holds those
+# paths within ATTN_TOL's 3e-5
 DECODE_CASES = ([("stablelm", 1, s, n, "bfloat16")
                  for s in (128, 1000, 2048) for n in (1, s // 2, s)]
                 + [("stablelm", 4, 2048, 300, "bfloat16"),
+                   ("stablelm", 1, 2048, "last", "bfloat16"),
                    ("starcoder2", 1, 64, 64, "bfloat16"),
                    ("starcoder2", 1, 4096, 4096, "bfloat16"),
                    ("starcoder2", 1, 4096, "ring", "bfloat16"),
+                   ("hymba", 1, 1024, 1024, "bfloat16"),
+                   ("hymba", 1, 2048, 1544, "bfloat16"),
+                   ("hymba", 4, 2048, 272, "bfloat16"),
                    ("stablelm", 1, 2048, 1024, "float32"),
-                   ("starcoder2", 2, 1000, 999, "float32")])
+                   ("stablelm", 4, 2048, 300, "float32"),
+                   ("starcoder2", 2, 1000, 999, "float32"),
+                   ("hymba", 4, 2048, 272, "float32"),
+                   ("mqa", 2, 1000, 999, "float32")])
+
+
+def decode_valid(torch, S, n, dev):
+    """The (S,) bool mask of a DECODE_CASES row."""
+    j = torch.arange(S, device=dev)
+    if n == "ring":   # a ring cache mid-wrap: every third slot stale
+        return (j % 3) != 1
+    if n == "last":
+        return j == S - 1
+    return j < n
 
 
 def attn_close(torch, got, want, dtype):
@@ -596,12 +632,13 @@ def attn_close(torch, got, want, dtype):
     return float(err.max()), ok
 
 
-def mma_close(torch, got, want):
-    """Max abs error, the largest share of MMA_TOL that it uses, and
-    whether |got - want| <= atol + rtol * |want| everywhere."""
+def mma_close(torch, got, want, tol=MMA_TOL):
+    """Max abs error, the largest share of `tol` (MMA_TOL or DECODE_TOL)
+    that it uses, and whether |got - want| <= atol + rtol * |want|
+    everywhere."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    share = err / (MMA_TOL["atol"] + MMA_TOL["rtol"] * w.abs())
+    share = err / (tol["atol"] + tol["rtol"] * w.abs())
     ok = bool((share <= 1).all()) and bool(torch.isfinite(g).all())
     return float(err.max()), float(share.max()), ok
 
@@ -622,6 +659,14 @@ def flash_work(B, Sq, Skv, H, KV, hd, window, elt=2):
     n_keys = min(Sq, Skv)
     n_bytes = 2 * B * Sq * H * hd * elt + 2 * B * n_keys * KV * hd * elt
     return n_bytes, 4 * hd * H * B * flash_pairs(Sq, window)
+
+
+def decode_work(B, S, H, KV, hd, n_valid, elt=2):
+    """Bytes (q read once, the output written once, k and v read once
+    over the valid slots, the mask once) and operations (4 hd a valid
+    key and head) of one decode_attention call."""
+    n_bytes = 2 * B * H * hd * elt + 2 * B * n_valid * KV * hd * elt + S
+    return n_bytes, 4 * B * H * hd * n_valid
 
 
 def sdpa_flash(torch, q, k, v, window):
@@ -711,10 +756,7 @@ def phase_attention_kernels(torch, dev):
         H, KV, hd = ATTN_GEOMETRY[g]
         q = rand((B, H, hd), dtype)
         k, v = rand((B, S, KV, hd), dtype), rand((B, S, KV, hd), dtype)
-        if n == "ring":   # a ring cache mid-wrap: every third slot stale
-            valid = (torch.arange(S, device=dev) % 3) != 1
-        else:
-            valid = torch.arange(S, device=dev) < n
+        valid = decode_valid(torch, S, n, dev)
         n_valid = int(valid.sum())
         case = dict(geometry=g, B=B, S=S, H=H, KV=KV, hd=hd,
                     n_valid=n_valid, dtype=dtype)
@@ -723,10 +765,11 @@ def phase_attention_kernels(torch, dev):
         timed = dtype == "bfloat16"
         timing = {}
         if timed:
-            elt = 2
-            n_bytes = (2 * B * H * hd * elt + 2 * B * n_valid * KV * hd * elt
-                       + S)
-            t_b, by = bound(n_bytes, 4 * B * H * hd * n_valid,
+            e, share, ok = mma_close(torch, got, want, DECODE_TOL)
+            check(ok, f"decode_attention {case}: more than one bf16 ulp "
+                      f"from its plain version (max abs err {e}, {share} "
+                      f"of DECODE_TOL)")
+            t_b, by = bound(*decode_work(B, S, H, KV, hd, n_valid),
                             PEAK_BF16_OPS_PER_S)
             qt = q[:, :, None, :]
             kt, vt = k.transpose(1, 2), v.transpose(1, 2)
@@ -743,7 +786,7 @@ def phase_attention_kernels(torch, dev):
                 plain_ms=device_ms(torch, lambda: da_ref.decode_attention_ref(
                     q, k, v, valid), reps=20),
                 library_ms=device_ms(torch, lib), library_max_abs_err=lib_err,
-                bound_ms=t_b, bound_by=by)
+                bound_ms=t_b, bound_by=by, decode_tolerance_share=share)
         row = record("decode_attention", case, got, want, dtype, **timing)
         if (g, S, n, B) == (*DA_LINE, 1) and timed:
             line["decode_attention"] = row
@@ -753,7 +796,8 @@ def phase_attention_kernels(torch, dev):
     for row in before:
         emit(phase="flash_attention_vs_cuda_core", **row)
     emit(phase="attention_kernels", cases=len(rows),
-         max_abs_err=err, tolerance=ATTN_TOL, mma_tolerance=MMA_TOL)
+         max_abs_err=err, tolerance=ATTN_TOL, mma_tolerance=MMA_TOL,
+         decode_tolerance=DECODE_TOL)
     out = {}
     for name, src, rep in (("flash_attention", FA_SRC, FA_REPLACES),
                            ("decode_attention", DA_SRC, DA_REPLACES)):

@@ -5,14 +5,16 @@ checks device, dtype, shape and contiguity, then dispatches on where
 its tensors lie:
 
 * on CUDA it launches `decode_attention.cu` on the current stream (its
-  two launches: per-split partials, then the combine; output and the
+  two launches: per-split partials, one CTA per (split, KV head, batch)
+  serving the KV head's query heads, then the combine; output and the
   split scratch allocated here with `torch.empty`), raises if a launch
   reports an error, and adds one to `LAUNCHES["decode_attention"]`;
 * on the CPU it calls the plain version in `ref.py`;
 * anywhere else it raises.
 
 Unlike the reference, the cache length S need not be a multiple of a
-block.
+block.  On CUDA `valid` must be 16-byte aligned: the kernel reads it in
+16-byte words.
 """
 from __future__ import annotations
 
@@ -27,8 +29,10 @@ from repro_torch.kernels.flash_attention.ops import (
     check_attention_inputs,
 )
 
-BLOCK = 128        # keys per block (decode_attention.cu DBK)
-TARGET_CTAS = 264  # 2 per SM of an H100 SXM
+BLOCK = 32         # keys a tile (decode_attention.cu TK)
+MAX_TILES = 128    # tiles a split holds at most (decode_attention.cu)
+SMS = 132          # SMs of an H100 SXM
+TARGET_CTAS = 4 * SMS  # partial CTAs over B * KV * n_split
 
 LAUNCHES = {"decode_attention": 0}
 
@@ -50,19 +54,22 @@ def _lib() -> ctypes.CDLL:
                                      _I, _I, _I, ctypes.c_float, _I, _P],
             "decode_attention_block": []})
         if lib.decode_attention_block() != BLOCK:
-            raise RuntimeError("decode_attention.cu DBK disagrees with "
+            raise RuntimeError("decode_attention.cu TK disagrees with "
                                "ops.BLOCK")
         _LIB = lib
     return _LIB
 
 
-def split_plan(B: int, H: int, S: int) -> tuple[int, int]:
-    """(n_split, blocks_per_split): enough splits of the cache that
-    B * H * n_split reaches TARGET_CTAS, each a run of whole blocks."""
-    n_blk = -(-S // BLOCK)
-    want = min(max(1, -(-TARGET_CTAS // (B * H))), n_blk)
-    per = -(-n_blk // want)
-    return -(-n_blk // per), per
+def split_plan(B: int, KV: int, S: int) -> tuple[int, int]:
+    """(n_split, tiles_per_split): the cache's tiles of BLOCK keys cut
+    into runs of at most MAX_TILES, enough of them that the B * KV *
+    n_split partial CTAs reach TARGET_CTAS where the cache has that many
+    tiles.  Since n_split >= min(want, n_tiles) / 2, that puts at least
+    one CTA on each SM wherever B * KV * n_tiles >= SMS."""
+    n_tiles = -(-S // BLOCK)
+    want = min(max(1, -(-TARGET_CTAS // (B * KV))), n_tiles)
+    per = min(-(-n_tiles // want), MAX_TILES)
+    return -(-n_tiles // per), per
 
 
 def decode_attention(q, k, v, valid):
@@ -80,8 +87,10 @@ def decode_attention(q, k, v, valid):
                          f"{dev}")
     if dev.type == "cpu":
         return ref.decode_attention_ref(q, k, v, valid)
+    if valid.data_ptr() % 16:
+        raise ValueError("decode_attention: valid must be 16-byte aligned")
     lib = _lib()
-    n_split, per = split_plan(B, H, S)
+    n_split, per = split_plan(B, KV, S)
     out = torch.empty_like(q)
     part = torch.empty((B, H, n_split, hd + 2), dtype=torch.float32,
                        device=dev)

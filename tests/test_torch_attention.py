@@ -19,8 +19,12 @@ run their plain PyTorch versions on CPU tensors; they are held against
   einsums in bfloat16).
 
 Ragged lengths that only the port accepts (no block divisibility) are
-held against the oracles.  The CUDA kernels themselves are held against
-these plain versions on the card by `chip_smoke.py`.
+held against the oracles.  The decode kernel's algorithm (32-key tiles,
+splits from `ops.split_plan`, tiles with no valid key skipped, the
+combine and its all-invalid rule) is emulated step by step in
+`decode_attention_split_ref` and held against the interpret-mode Pallas
+kernel like the plain version.  The CUDA kernels themselves are held
+against these plain versions on the card by `chip_smoke.py`.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +38,7 @@ from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref as port_decode_ref,
+    decode_attention_split_ref,
 )
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_mma_ref
@@ -104,7 +109,31 @@ DECODE_GRID = [
     (4, 2048, 8, 2, 64, 1, 512),         # single valid entry
     (2, 1024, 16, 2, 128, 555, 256),
     (1, 4096, 4, 1, 64, 4096, 1024),     # fully valid, MQA
+    # the port's kernel serves a KV head's G query heads in one CTA:
+    (1, 1024, 10, 2, 64, 700, 256),      # G = 5 (Hymba), not a power of 2
+    (1, 1024, 24, 2, 128, 1024, 256),    # G = 12 (StarCoder2), all valid
+    # splits of 4 tiles (ops.split_plan at B * KV = 32): the valid prefix
+    # ends inside split 7 and inside its last tile
+    (2, 2048, 16, 16, 32, 1000, 512),
 ]
+# the kernel's split emulation: (B, S, H, KV, hd, mask, bk); mask is a
+# valid prefix length, "ring" (every third slot stale), or "tile_last"
+# (only the last key of each 32-key tile valid: every live tile rests
+# on the key that the any-valid test reads last)
+DECODE_SPLIT_CASES = (
+    [(B, S, H, KV, hd, n, bk) for B, S, H, KV, hd, n, bk in DECODE_GRID]
+    + [(1, 512, 4, 2, 64, "ring", 128),
+       (2, 77, 4, 2, 32, 0, 77),            # nothing valid: the mean of V
+       (1, 512, 10, 2, 64, "tile_last", 128)])
+
+
+def decode_mask(S, mask):
+    j = np.arange(S)
+    if mask == "ring":
+        return (j % 3) != 1
+    if mask == "tile_last":
+        return (j % da_ops.BLOCK) == da_ops.BLOCK - 1
+    return j < mask
 
 
 class TestFlashAttention:
@@ -224,12 +253,55 @@ class TestDecodeAttention:
             da_ops.decode_attention(q, k, k, torch.ones(16))
 
     def test_split_plan_covers_every_block(self):
-        for B, H, S in [(1, 32, 2048), (4, 32, 2048), (1, 24, 64),
-                        (1, 1, 129), (64, 32, 4096), (1, 32, 100)]:
-            n_split, per = da_ops.split_plan(B, H, S)
+        for B, KV, S in [(1, 32, 2048), (4, 32, 2048), (1, 24, 64),
+                         (1, 1, 129), (64, 32, 4096), (1, 32, 100),
+                         (1, 2, 4096), (1, 2, 64), (1, 5, 1024),
+                         (4, 5, 2048), (1, 1, 1 << 20)]:
+            n_split, per = da_ops.split_plan(B, KV, S)
             n_blk = -(-S // da_ops.BLOCK)
+            assert 1 <= per <= da_ops.MAX_TILES
             assert n_split == -(-n_blk // per)
             assert (n_split - 1) * per < n_blk <= n_split * per
+
+    def test_grid_has_a_prefix_ending_inside_a_split(self):
+        """DECODE_GRID keeps a case whose valid prefix ends inside a tile
+        of a split of several tiles, under the present plan."""
+        def inside(B, S, KV, n):
+            n_split, per = da_ops.split_plan(B, KV, S)
+            return per > 1 and 0 < n < S and n % da_ops.BLOCK
+        assert any(inside(B, S, KV, n)
+                   for B, S, H, KV, hd, n, bk in DECODE_GRID)
+
+    @pytest.mark.parametrize("B,KV,S", [
+        (1, 32, 2048), (4, 32, 2048),            # StableLM serve, batch
+        (1, 2, 4096), (1, 2, 64),                # StarCoder2
+        (1, 5, 1024), (1, 5, 2048), (4, 5, 2048),  # Hymba local, global
+        (1, 1, 100),                             # fewer tiles than SMs
+    ])
+    def test_split_plan_fills_the_card(self, B, KV, S):
+        """At least one partial CTA an SM wherever the cache has that many
+        tiles, every one of them when it has fewer."""
+        n_split, per = da_ops.split_plan(B, KV, S)
+        n_tiles = -(-S // da_ops.BLOCK)
+        assert B * KV * n_split >= min(da_ops.SMS, B * KV * n_tiles)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,S,H,KV,hd,mask,bk", DECODE_SPLIT_CASES)
+    def test_split_emulation_matches_kernel(self, dtype, B, S, H, KV, hd,
+                                            mask, bk):
+        """The CUDA kernel's algorithm (tiles, splits, the skipping of
+        tiles with no valid key, the combine and its all-invalid rule),
+        emulated in ref.py, against the reference's interpret-mode
+        Pallas kernel."""
+        (jq, jk, jv), (tq, tk, tv) = inputs(
+            5, [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)], dtype)
+        valid = decode_mask(S, mask)
+        plan = da_ops.split_plan(B, KV, S)
+        port = decode_attention_split_ref(tq, tk, tv, torch.from_numpy(valid),
+                                          plan, da_ops.BLOCK)
+        assert port.dtype == TORCH[dtype] and port.shape == (B, H, hd)
+        kernel = jax_decode(jq, jk, jv, jnp.asarray(valid), bk=bk)
+        assert_kernel_close(port, kernel, dtype)
 
     def test_plain_version_is_the_cpu_path(self):
         (_, _, _), (tq, tk, tv) = inputs(
