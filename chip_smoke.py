@@ -26,9 +26,14 @@ Phases:
   2. build: nvcc of every kernel source, all started together;
   3. kernels: each scheduler kernel against its plain version on the
      card, exact equality of indices and score bits, over the main
-     path's shapes and edge cases; times (CUDA events, median of 60
-     calls after warm-up) of the kernel, its plain version and the
-     nearest single PyTorch call;
+     path's shapes and edge cases (`sched_cases`: queues of one CTA's
+     tile of 4096 lanes and its edges, all masked, fewer eligible lanes
+     than b, equal best scores on both sides of a tile edge), a second
+     identical call over several CTAs equal to the first, and one
+     device kernel a call of `sched_score_argmax` and `sched_score_topb`
+     (torch.profiler); times (CUDA events, median of 60 calls after
+     warm-up) of the kernel, its plain version and the nearest single
+     PyTorch call;
   4. paper cell: `run_cell` on the card and on the CPU with the same
      inputs — equal decision traces, equal terminal statuses, metrics
      within the tests' tolerance;
@@ -189,29 +194,132 @@ def bound(n_bytes, n_ops, peak_ops=PEAK_F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+SCHED_TILE = 4096   # lanes per CTA of top-b and argmax (ops.TILE)
+SCHED_SIZES = (256, 2048, 4096, 100_000)
+# one CTA's tile and its edges: n = tile - 1 and tile take one CTA,
+# tile + 1 and 2 tile + 1 a grid whose last CTA merges the others' lists
+SCHED_EDGES = (SCHED_TILE - 1, SCHED_TILE, SCHED_TILE + 1, 2 * SCHED_TILE + 1)
+SCHED_PROFILED = (256, 4096, 100_000)   # kernels a call, by the profiler
+
+
+def sched_feats(torch, gen, dev, n, density, route=False, ties=False,
+                tie_at=(), ramp=False):
+    """Seeded (wait, cost, urgency, mask, weights, route) on `dev`: all
+    lanes equal with `ties`; scores rising with i % 1024 with `ramp`; the
+    lanes `tie_at` given one equal score above every other lane's."""
+    if ties:
+        one = torch.ones(n)
+        x = [one * 7, one * 3, one]
+    elif ramp:
+        x = [(torch.arange(n) % 1024).float() * 10, torch.ones(n),
+             torch.zeros(n)]
+    else:
+        x = [torch.rand(n, generator=gen) * 5e3,
+             torch.rand(n, generator=gen) * 3000 + 0.5,
+             torch.rand(n, generator=gen) * 2]
+    mask = torch.rand(n, generator=gen) < density
+    w = torch.tensor([1.0, 0.8, 0.5, 650.0] + ([400.0] if route else []))
+    r = torch.rand(n, generator=gen) * 3 if route else None
+    for i in tie_at:
+        x[0][i], x[1][i], x[2][i], mask[i] = 1e4, 1.0, 0.0, True
+        if r is not None:
+            r[i] = 0.0
+    return [t.to(dev) if t is not None else None for t in (*x, mask, w, r)]
+
+
+def sched_cases(torch, dev):
+    """Phase 3's cases of `sched_score_topb` and `sched_score_argmax`:
+    (kernel, label, b, features); b is None for argmax."""
+    gen = torch.Generator().manual_seed(1234)
+    cases = []
+
+    def add(name, b, n, density, **kw):
+        label = f"n={n} b={b} density={density}" + "".join(
+            f" {k}={v}" for k, v in kw.items())
+        cases.append((name, label, b,
+                      sched_feats(torch, gen, dev, n, density, **kw)))
+    # n = 256 and 2048 take one CTA; 256 with b = 4 is the paper cell's
+    # shape, 4096 and 100,000 the scale run's and the dense path's
+    for n in SCHED_SIZES:
+        for b in (1, 4, 16, 128):
+            for density in (0.1, 0.9):
+                for route in (False, True):
+                    add("sched_score_topb", b, n, density, route=route)
+        add("sched_score_topb", 64, n, 1.0, ties=True)
+        add("sched_score_topb", 64, n, 0.0005)           # b > eligible
+        for route in (False, True):
+            add("sched_score_argmax", None, n, 0.5, route=route)
+    for n in SCHED_EDGES:
+        for b in (1, 16, 32, 128):
+            add("sched_score_topb", b, n, 0.5)
+        add("sched_score_topb", 16, n, 0.0)              # all masked
+        add("sched_score_topb", 16, n, 0.0005)           # b > eligible
+        add("sched_score_argmax", None, n, 0.5)
+        add("sched_score_argmax", None, n, 0.0)
+    # scores rising with i % 1024: far more keys than CAP pass the
+    # kernel's filter, so every warp sorts and the CTA merges
+    for n in (SCHED_TILE, 3 * SCHED_TILE + 7):
+        for b in (4, 16, 32):
+            add("sched_score_topb", b, n, 1.0, ramp=True)
+    # more lists than one round of the last CTA takes (TILE / L)
+    add("sched_score_topb", 128, 40 * SCHED_TILE + 5, 0.5)
+    add("sched_score_topb", 16, 257 * SCHED_TILE, 0.5)
+    # equal best scores on both sides of a tile edge: the lower index
+    # ranks first
+    t = SCHED_TILE
+    for n, lanes in ((t + 1, (t - 1, t)), (2 * t + 1, (t - 1, 2 * t)),
+                     (100_000, (3 * t - 1, 3 * t, 5 * t + 7))):
+        for route in (False, True):
+            for b in (1, 16):
+                add("sched_score_topb", b, n, 0.5, route=route, tie_at=lanes)
+            add("sched_score_argmax", None, n, 0.5, route=route,
+                tie_at=lanes)
+    return cases
+
+
+def sched_want(ref, name, b, f):
+    """The plain version's answer to one of `sched_cases`."""
+    wait, cost, urg, mask, w, r = f
+    if name == "sched_score_argmax":
+        return ref.sched_score_argmax_ref(wait, cost, urg, mask, w, r)
+    return ref.sched_score_topb_ref(wait, cost, urg, mask, w, b, r)
+
+
+def same_bits(torch, a, b):
+    """Equal tensors, float32 compared bit for bit."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def kernels_per_call(torch, fn, calls=10):
+    """Device kernels a call of `fn` launches, by torch.profiler over
+    `calls` calls (the trace can miss the first kernel event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / calls
+
+
 def phase_kernels(torch, dev):
     from repro_torch.kernels.sched_score import ops, ref
 
-    gen = torch.Generator().manual_seed(1234)
+    check(ops.TILE == SCHED_TILE, "chip_smoke SCHED_TILE disagrees with "
+          "ops.TILE")
+    gen = torch.Generator().manual_seed(4321)
 
-    def feats(n, density, route=False, ties=False):
-        if ties:
-            one = torch.ones(n)
-            x = [one * 7, one * 3, one]
-        else:
-            x = [torch.rand(n, generator=gen) * 5e3,
-                 torch.rand(n, generator=gen) * 3000 + 0.5,
-                 torch.rand(n, generator=gen) * 2]
-        mask = torch.rand(n, generator=gen) < density
-        w = torch.tensor([1.0, 0.8, 0.5, 650.0] + ([400.0] if route else []))
-        r = torch.rand(n, generator=gen) * 3 if route else None
-        return [t.to(dev) if t is not None else None
-                for t in (*x, mask, w, r)]
+    def feats(n, density, route=False):
+        return sched_feats(torch, gen, dev, n, density, route)
 
     def same(a, b):
-        if a.dtype == torch.float32:
-            return torch.equal(a.view(torch.int32), b.view(torch.int32))
-        return torch.equal(a, b)
+        return same_bits(torch, a, b)
 
     err = {"sched_score_topb": 0.0, "sched_score_argmax": 0.0,
            "sched_compact_topb": 0.0}
@@ -220,35 +328,27 @@ def phase_kernels(torch, dev):
         err[name] = max(err[name],
                         float((got_score - want_score).abs().max()))
     cases = 0
-    # n = 256 and 2048 take the single-block path (one block ranks all
-    # n lanes and writes idx and score itself); 256 with b = 4 is the
-    # paper cell's shape, 4096 and 100,000 the scale run's and the dense
-    # path's
-    for n in (256, 2048, 4096, 100_000):
-        for b in (1, 4, 16, 128):
-            for density in (0.1, 0.9):
-                for route in (False, True):
-                    wait, cost, urg, mask, w, r = feats(n, density, route)
-                    got = ops.sched_score_topb(wait, cost, urg, mask, w, b, r)
-                    want = ref.sched_score_topb_ref(wait, cost, urg, mask, w,
-                                                    b, r)
-                    check(all(map(same, got, want)),
-                          f"sched_score_topb n={n} b={b} density={density} "
-                          f"route={route}")
-                    note_err("sched_score_topb", got[1], want[1])
-                    cases += 1
-        for kw in (dict(density=1.0, ties=True), dict(density=0.0005)):
-            wait, cost, urg, mask, w, r = feats(n, **kw)   # ties; b > eligible
-            got = ops.sched_score_topb(wait, cost, urg, mask, w, 64)
-            want = ref.sched_score_topb_ref(wait, cost, urg, mask, w, 64)
-            check(all(map(same, got, want)), f"sched_score_topb n={n} {kw}")
-            cases += 1
-        for route in (False, True):
-            wait, cost, urg, mask, w, r = feats(n, 0.5, route)
+    for name, label, b, f in sched_cases(torch, dev):
+        wait, cost, urg, mask, w, r = f
+        if name == "sched_score_argmax":
             got = ops.sched_score_argmax(wait, cost, urg, mask, w, r)
-            want = ref.sched_score_argmax_ref(wait, cost, urg, mask, w, r)
-            check(all(map(same, got, want)), f"sched_score_argmax n={n}")
-            note_err("sched_score_argmax", got[1], want[1])
+        else:
+            got = ops.sched_score_topb(wait, cost, urg, mask, w, b, r)
+        want = sched_want(ref, name, b, f)
+        check(all(map(same, got, want)), f"{name} {label}")
+        note_err(name, got[1], want[1])
+        cases += 1
+    # back to back: a second identical call over several CTAs must give
+    # the same bits (the last CTA sets the done counter back to 0)
+    for n in SCHED_EDGES[2:] + (100_000,):
+        wait, cost, urg, mask, w, _ = feats(n, 0.5)
+        for call in (lambda: ops.sched_score_topb(wait, cost, urg, mask, w,
+                                                  16),
+                     lambda: ops.sched_score_argmax(wait, cost, urg, mask,
+                                                    w)):
+            first, second = call(), call()
+            check(all(map(same, first, second)),
+                  f"sched_score n={n}: a repeated call differs")
             cases += 1
     for density in (0.0, 0.05, 0.6, 1.0):
         for b in (1, 16, 128):
@@ -263,7 +363,17 @@ def phase_kernels(torch, dev):
             note_err("sched_compact_topb", got[3], want[3])
             cases += 1
     torch.cuda.synchronize()
-    emit(phase="kernels_vs_plain", cases=cases, exact=True)
+    per_call = {}
+    for n in SCHED_PROFILED:
+        wait, cost, urg, mask, w, _ = feats(n, 0.5)
+        per_call[f"sched_score_argmax n={n}"] = kernels_per_call(
+            torch, lambda: ops.sched_score_argmax(wait, cost, urg, mask, w))
+        per_call[f"sched_score_topb n={n} b=16"] = kernels_per_call(
+            torch, lambda: ops.sched_score_topb(wait, cost, urg, mask, w, 16))
+    emit(phase="kernels_vs_plain", cases=cases, exact=True,
+         kernels_per_call=per_call)
+    check(all(round(v) == 1 for v in per_call.values()),
+          f"sched_score: a call launched other than one kernel: {per_call}")
 
     # times at the main path's shapes: the windowed tick ranks a (4096,)
     # pool with b = 16 (K+1 times a tick); n = 100,000 is the dense path

@@ -5,9 +5,10 @@ device, dtype, shape and contiguity, then dispatches on where its
 tensors lie:
 
 * on CUDA it launches the hand kernel from `sched_score.cu` on the
-  current stream (outputs and scratch allocated here with
-  `torch.empty`), raises if the launch reports an error, and adds one
-  to its count in `LAUNCHES`;
+  current stream (outputs allocated here with `torch.empty`; the
+  top-b and argmax workspace once per device, `_workspace`), raises if
+  the launch reports an error, and adds one to its count in
+  `LAUNCHES`;
 * on the CPU it calls the plain version in `ref.py`;
 * anywhere else it raises.
 
@@ -24,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.sched_score import ref
 
-TILE = 2048   # lanes per block of the top-b passes (sched_score.cu TILE)
+TILE = 4096   # lanes per CTA of top-b and argmax (sched_score.cu TILE)
 BMAX = 128    # largest b, as in the reference
 WMAX = 4096   # largest slot pool of sched_compact_topb
 
@@ -97,11 +98,27 @@ def _features(name, wait, cost, urgency, mask, weights, route):
     return n, dev
 
 
-def _scratch(n: int, b: int, dev):
-    a = -(-n // TILE) * b
-    bsz = max(1, -(-a // TILE) * b)
-    return (torch.empty((a,), dtype=torch.int64, device=dev),
-            torch.empty((bsz,), dtype=torch.int64, device=dev))
+_WORKSPACE: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(n: int, dev):
+    """The (keys, done) workspace of a top-b or argmax call over n lanes.
+
+    Past one tile each CTA writes its best keys (at most BMAX) to
+    `keys`, and counts itself in on the `done` counter; the last CTA to
+    arrive merges them and sets `done` back to 0.  So both are made
+    once per device (`done` zeroed then; `keys` grown when a longer
+    queue comes), not on every call, and a call launches one kernel.
+    One workspace serves one stream at a time: calls in flight on two
+    streams at once would share the counter."""
+    need = -(-n // TILE) * BMAX
+    keys, done = _WORKSPACE.get(dev, (None, None))
+    if done is None:
+        done = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if keys is None or keys.numel() < need:
+        keys = torch.empty((need,), dtype=torch.int64, device=dev)
+    _WORKSPACE[dev] = (keys, done)
+    return keys, done
 
 
 def _ptr(t):
@@ -126,10 +143,10 @@ def sched_score_topb(wait, cost, urgency, mask, weights, b: int, route=None):
     lib = _lib()
     idx = torch.empty((b,), dtype=torch.int32, device=dev)
     score = torch.empty((b,), dtype=torch.float32, device=dev)
-    sa, sb = _scratch(n, b, dev)
+    keys, done = _workspace(n, dev)
     rc = lib.sched_score_topb(
         _ptr(wait), _ptr(cost), _ptr(urgency), _ptr(route), _ptr(mask),
-        _ptr(weights), n, b, _ptr(sa), _ptr(sb), _ptr(idx), _ptr(score),
+        _ptr(weights), n, b, _ptr(keys), _ptr(done), _ptr(idx), _ptr(score),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_rc(lib, rc, "sched_score_topb")
     LAUNCHES["sched_score_topb"] += 1
@@ -147,10 +164,10 @@ def sched_score_argmax(wait, cost, urgency, mask, weights, route=None):
     lib = _lib()
     idx = torch.empty((), dtype=torch.int32, device=dev)
     score = torch.empty((), dtype=torch.float32, device=dev)
-    sa, sb = _scratch(n, 1, dev)
+    keys, done = _workspace(n, dev)
     rc = lib.sched_score_argmax(
         _ptr(wait), _ptr(cost), _ptr(urgency), _ptr(route), _ptr(mask),
-        _ptr(weights), n, _ptr(sa), _ptr(sb), _ptr(idx), _ptr(score),
+        _ptr(weights), n, _ptr(keys), _ptr(done), _ptr(idx), _ptr(score),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_rc(lib, rc, "sched_score_argmax")
     LAUNCHES["sched_score_argmax"] += 1

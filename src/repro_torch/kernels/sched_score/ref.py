@@ -15,6 +15,9 @@ give the same bits as the CUDA kernels in `sched_score.cu`:
 
 `ops.py` calls these for tensors on the CPU; the tests and
 `chip_smoke.py` hold the kernels against them.
+`sched_score_topb_split_ref` follows the CUDA kernel's partition (each
+CTA tile ranks its own lanes, then the tiles' lists are merged), for the
+tests to show that the partition changes no bit.
 """
 from __future__ import annotations
 
@@ -43,6 +46,26 @@ def sched_score_topb_ref(wait, cost, urgency, mask, weights, b: int,
                          route=None):
     """Top-b `(idx (b,) int32, score (b,) float32)`, best first."""
     return _rank(scores_ref(wait, cost, urgency, mask, weights, route), b)
+
+
+def sched_score_topb_split_ref(wait, cost, urgency, mask, weights, b: int,
+                               route=None, *, tile: int):
+    """`sched_score_topb_ref` computed as the kernel partitions it: each
+    tile of `tile` lanes (one CTA) keeps its best L = b rounded up to a
+    power of two, ranked as above; the lists, in tile order, are ranked
+    again and the best b returned.  A stable sort of the lists keeps
+    equal scores in index order, so ties still go to the lowest
+    index."""
+    score = scores_ref(wait, cost, urgency, mask, weights, route)
+    keep = 1 << (b - 1).bit_length()
+    idx, val = [], []
+    for start in range(0, score.shape[0], tile):
+        part = score[start:start + tile]
+        i, s = _rank(part, min(keep, part.shape[0]))
+        idx.append(i + start)
+        val.append(s)
+    j, s = _rank(torch.cat(val), b)
+    return torch.cat(idx)[j.long()], s
 
 
 def sched_score_argmax_ref(wait, cost, urgency, mask, weights, route=None):

@@ -5,7 +5,11 @@ the reference's `repro.kernels.sched_score.ref` oracles (jitted, as the
 reference's own kernel tests use them) and the port's wrappers in
 `repro_torch.kernels.sched_score.ops`, which on CPU tensors run the
 plain PyTorch versions in `ref.py`.  One case also goes through the
-reference's Pallas kernel in interpret mode.
+reference's Pallas kernel in interpret mode.  `TestTilePartition` holds
+the plain emulation of the CUDA kernel's partition (each 4096-lane CTA
+tile ranks its own lanes, then the tiles' lists are merged) against the
+reference's oracle and its interpret-mode Pallas kernel, at the tile's
+edges, across tiles and on masked tails.
 
 Tolerance: indices must match exactly.  Scores must match exactly
 without the route term.  With it they may differ by the rounding of the
@@ -23,6 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.sched_score.ops import (
+    sched_score_argmax as ref_argmax_kernel,
+)
 from repro.kernels.sched_score.ops import sched_score_topb as ref_topb_kernel
 from repro.kernels.sched_score.ref import (
     sched_compact_topb_ref,
@@ -177,6 +184,102 @@ class TestSchedScoreArgmax:
         ip, sp = ops.sched_score_argmax(t(z), t(z + 100), t(z),
                                         t(np.zeros(512, bool)), t(W4))
         assert int(ip) == 0 and float(sp) == np.float32(port_ref.NEG)
+
+
+TILE = ops.TILE
+EDGES = (TILE - 1, TILE, TILE + 1, 2 * TILE + 1, 100_000)
+
+
+def split(feats, b, route=None):
+    wait, cost, urg, mask, r = feats
+    w = W5 if r is not None else W4
+    return port_ref.sched_score_topb_split_ref(
+        t(wait), t(cost), t(urg), t(mask), t(w), b, t(r), tile=TILE)
+
+
+def tie_across(feats, lanes):
+    """`feats` with the lanes `lanes` given one equal score above every
+    other lane's."""
+    wait, cost, urg, mask, r = (None if a is None else a.copy()
+                                for a in feats)
+    for i in lanes:
+        wait[i], cost[i], urg[i], mask[i] = 1e4, 1.0, 0.0, True
+        if r is not None:
+            r[i] = 0.0
+    return wait, cost, urg, mask, r
+
+
+def check_split(feats, b, pallas=True):
+    """The partition's emulation equal to the oracle, the interpret-mode
+    Pallas kernel and the port's plain version, bit for bit (no route
+    term)."""
+    wait, cost, urg, mask, _ = feats
+    ip, sp = split(feats, b)
+    jx = [jnp.asarray(a) for a in (wait, cost, urg, mask, W4)]
+    wants = [sched_score_topb_ref(*jx, b)]
+    if pallas:
+        wants.append(ref_topb_kernel(*jx, b))
+    wants.append(ops.sched_score_topb(t(wait), t(cost), t(urg), t(mask),
+                                      t(W4), b))
+    assert ip.dtype == torch.int32 and ip.shape == (b,)
+    for iw, sw in wants:
+        np.testing.assert_array_equal(ip.numpy(), np.asarray(iw))
+        assert_scores(sp.numpy(), sw)
+    return ip, sp
+
+
+class TestTilePartition:
+    @pytest.mark.parametrize("n", EDGES)
+    @pytest.mark.parametrize("b", [1, 16, 128])
+    def test_tile_edges(self, n, b):
+        check_split(features(n, seed=n % 97 + b), b)
+
+    @pytest.mark.parametrize("n,lanes", [
+        (TILE + 1, (TILE - 1, TILE)),
+        (2 * TILE + 1, (TILE - 1, 2 * TILE)),
+        (100_000, (3 * TILE - 1, 3 * TILE, 5 * TILE + 7))])
+    @pytest.mark.parametrize("b", [1, 16])
+    def test_tie_across_tiles_goes_to_lower_index(self, n, lanes, b):
+        ip, _ = check_split(tie_across(features(n, seed=b), lanes), b)
+        np.testing.assert_array_equal(ip.numpy()[:len(lanes)],
+                                      np.asarray(lanes[:b]))
+
+    @pytest.mark.parametrize("n", EDGES[2:])
+    @pytest.mark.parametrize("density", [0.0, 0.0005])
+    def test_masked_tail_in_index_order(self, n, density):
+        """All masked, and fewer eligible lanes than b: NEG lanes fill
+        the tail in index order, across tiles."""
+        feats = features(n, seed=4, density=density)
+        ip, sp = check_split(feats, 16)
+        live = min(int(feats[3].sum()), 16)
+        assert np.all(sp.numpy()[live:] == np.float32(port_ref.NEG))
+        tail = np.flatnonzero(~feats[3])[:16 - live]
+        np.testing.assert_array_equal(ip.numpy()[live:], tail)
+
+    @pytest.mark.parametrize("n", EDGES)
+    def test_argmax_is_the_first_of_the_split(self, n):
+        wait, cost, urg, mask, _ = feats = features(n, seed=n % 89)
+        ip, sp = split(feats, 1)
+        jx = [jnp.asarray(a) for a in (wait, cost, urg, mask, W4)]
+        for iw, sw in (sched_score_argmax_ref(*jx), ref_argmax_kernel(*jx),
+                       ops.sched_score_argmax(t(wait), t(cost), t(urg),
+                                              t(mask), t(W4))):
+            assert int(ip[0]) == int(iw)
+            assert_scores(sp.numpy()[:1], np.asarray(sw).reshape(1))
+
+    @pytest.mark.parametrize("n", EDGES)
+    def test_route_term(self, n):
+        """With the route row: equal to the port's plain version bit for
+        bit, and to the oracle within the route product's rounding."""
+        feats = features(n, seed=n % 83, route=True)
+        wait, cost, urg, mask, r = feats
+        ip, sp = split(feats, 16)
+        iq, sq = ops.sched_score_topb(t(wait), t(cost), t(urg), t(mask),
+                                      t(W5), 16, t(r))
+        np.testing.assert_array_equal(ip.numpy(), iq.numpy())
+        np.testing.assert_array_equal(sp.numpy().view(np.int32),
+                                      sq.numpy().view(np.int32))
+        check_topb(n, 16, route=True, feats=feats)
 
 
 def pool(w, seed, density=0.7, route=False):
