@@ -69,12 +69,21 @@ Phases:
   8. ssd_kernel: `ssd_intra` against its plain version on the card at
      the serve runs' shapes (Mamba2-780M: H = 48, P = 64, N = 128, a
      1024-, 8-, 37- and 300-token prompt and a batch of 4 x 256;
-     Hymba-1.5B: H = 50, N = 16, 300, 1536 and 2048 tokens and 4 x 256),
-     each with dt as the seeded model gives it and with dt from
-     Mamba2's published range, whose slow decay makes the whole chunk
-     count, within 1e-4 abs/rel on y and state; times of the kernel and
-     its plain version beside the bound (no single PyTorch call
-     computes it);
+     Hymba-1.5B: H = 50, N = 16, 300, 1536 and 2048 tokens and 4 x 256)
+     and at two shapes of no served model: one whose every tail is odd
+     (37 tokens, H = 5, P = 8, N = 24) and one with N = 201, past a
+     tile of B's columns (150 tokens, H = 3, P = 16), each with dt as
+     the seeded model gives it and with dt from Mamba2's published
+     range, whose slow decay makes the whole chunk count, within 1e-4
+     abs/rel on y and state (each case's share of that tolerance
+     printed); the heads a CTA and the CTAs the kernel plans; times of
+     the kernel and its plain version (no single PyTorch call computes
+     it) beside its bound, the larger of the bytes' and its route's
+     (the three products in 3xTF32 on the tensor cores, the rest in
+     float32), and beside every operation as float32 on the CUDA cores
+     (`bound_f32_ms`, the earlier body's route); one device kernel a
+     call (torch.profiler, taken before phase 4) at the kernels line's
+     shape;
   9. serve_ssm: `mamba2-780m` (48 SSM layers) as phase 7, the same six
      requests and batch; 48 `ssd_intra` launches a prompt, none a
      decode step, no attention;
@@ -145,11 +154,12 @@ def main() -> None:
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
 
     kernels = phase_kernels(torch, dev)
+    ssd_per_call = ssd_kernels_per_call(torch, dev)
     cell_launches = phase_paper_cell(torch, dev)
     scale = phase_scale(torch, dev, kernels)
     kernels.update(phase_attention_kernels(torch, dev))
     served = phase_serve(torch, dev, kernels)
-    kernels.update(phase_ssd_kernel(torch, dev))
+    kernels.update(phase_ssd_kernel(torch, dev, ssd_per_call))
     served_ssm = phase_serve_ssm(torch, dev, kernels)
     served_hybrid = phase_serve_hybrid(torch, dev, kernels)
 
@@ -379,6 +389,18 @@ def phase_kernels(torch, dev):
     # pool with b = 16 (K+1 times a tick); n = 100,000 is the dense path
     out = {}
     rows = []
+    # the paper cell ranks n = 256 with b = 4
+    wait, cost, urg, mask, w, _ = feats(256, 0.5)
+    scores = ref.scores_ref(wait, cost, urg, mask, w)
+    t_b, by = bound(256 * (3 * 4 + 1) + w.numel() * 4 + 4 * 8, 256 * 9)
+    rows.append(dict(
+        name="sched_score_topb", n=256, b=4,
+        ms=device_ms(torch, lambda: ops.sched_score_topb(
+            wait, cost, urg, mask, w, 4)),
+        plain_ms=device_ms(torch, lambda: ref.sched_score_topb_ref(
+            wait, cost, urg, mask, w, 4)),
+        library_ms=device_ms(torch, lambda: torch.topk(scores, 4)),
+        bound_ms=t_b, bound_by=by))
     for n in (4096, 100_000):
         wait, cost, urg, mask, w, _ = feats(n, 0.5)
         scores = ref.scores_ref(wait, cost, urg, mask, w)
@@ -1181,12 +1203,18 @@ def phase_serve(torch, dev, kernels):
 SSD_TOL = 1e-4   # abs and rel, the CPU tests' bound against the reference
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:53"
+PEAK_TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 # (geometry, B, S): the prompts the serve runs give the kernel.  Mamba2:
 # H = 48, P = 64, N = 128; Hymba: H = 50, P = 64, N = 16; chunk 128.
-# S = 8 and 37 are one short chunk each, 300 is padded to 384
+# S = 8 and 37 are one short chunk each, 300 is padded to 384.  "odd" and
+# "wide" are no served model's: in "odd" Q, H, P and N all leave tails
+# (37, 5, 8, 24); "wide" has N = 201, past one 128-column tile of B and
+# not a multiple of 4 (two chunks, the second padded)
 SSD_CASES = (("mamba2", 1, 1024), ("mamba2", 1, 8), ("mamba2", 1, 37),
              ("mamba2", 1, 300), ("mamba2", 4, 256), ("hymba", 1, 300),
-             ("hymba", 1, 1536), ("hymba", 4, 256), ("hymba", 1, 2048))
+             ("hymba", 1, 1536), ("hymba", 4, 256), ("hymba", 1, 2048),
+             ("odd", 1, 37), ("wide", 1, 150))
+SSD_OFF_MODEL = {"odd": (5, 8, 24, 128), "wide": (3, 16, 201, 128)}
 # each case's dt is drawn two ways, with A = exp(A_log) of the init
 # (linspace(1, 16, H)).  "init": softplus of a unit normal, as the seeded
 # model gives it (dt_bias 0), about 0.8, so that a step's weight has
@@ -1200,29 +1228,58 @@ SSD_LINE = ("mamba2", 1, 1024, "init")
 
 
 def ssd_work(B, nc, Q, H, P, N):
-    """(bytes, operations) the intra-chunk step needs: each input read
-    and each output written once; C.B^T once per (batch, chunk) on and
-    below the diagonal (it is the same for every head), then per head the
-    decay weights (subtract, exp, two products per pair), W x on the
-    causal pairs, the state weights and the state product."""
+    """(bytes, operations, product operations) the intra-chunk step
+    needs: each input read and each output written once; C.B^T once per
+    (batch, chunk) on and below the diagonal (it is the same for every
+    head), then per head the decay weights (subtract, exp, two products
+    per pair), W x on the causal pairs, the state weights and the state
+    product.  The three products (C.B^T, W x, the state) are the
+    tensor-core route's."""
     pairs = Q * (Q + 1) // 2
     n_bytes = 4 * B * nc * (2 * Q * H * P + 2 * Q * N + 2 * Q * H + H * P * N)
-    n_ops = B * nc * (2 * N * pairs + H * (4 * pairs + 2 * P * pairs
-                                           + 3 * Q + Q * P + 2 * Q * P * N))
-    return n_bytes, n_ops
+    n_products = B * nc * (2 * N * pairs + H * (2 * P * pairs
+                                                + 2 * Q * P * N))
+    n_ops = n_products + B * nc * H * (4 * pairs + 3 * Q + Q * P)
+    return n_bytes, n_ops, n_products
 
 
-def phase_ssd_kernel(torch, dev):
+def ssd_bounds(work):
+    """ms of the bounds of `ssd_work`'s work: bytes; the kernel's route,
+    the tensor cores' (3 TF32 products for each product operation, the
+    rest as float32); and, for comparison with the CUDA-core body of
+    earlier builds, every operation as float32 on the CUDA cores.  The
+    kernel's bound (`bound_ms`, `bound_by`) is the larger of the first
+    two."""
+    n_bytes, n_ops, n_products = work
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_tc = (3 * n_products / PEAK_TF32_OPS_PER_S
+            + (n_ops - n_products) / PEAK_F32_OPS_PER_S) * 1e3
+    return dict(
+        bound_ms=max(t_bytes, t_tc),
+        bound_by="bytes" if t_bytes >= t_tc else "operations",
+        bound_bytes_ms=t_bytes, bound_tc_ms=t_tc,
+        bound_f32_ms=n_ops / PEAK_F32_OPS_PER_S * 1e3)
+
+
+def ssd_geometry(g):
+    """(H, P, N, chunk) of a phase 8 geometry."""
+    if g in SSD_OFF_MODEL:
+        return SSD_OFF_MODEL[g]
     from repro_torch.configs import get
-    from repro_torch.kernels.ssd_scan import ops, ref
+
+    cfg = get({"mamba2": "mamba2-780m", "hymba": "hymba-1.5b"}[g])
+    return (cfg.n_ssm_heads, cfg.ssm.head_dim, cfg.ssm.d_state,
+            cfg.ssm.chunk)
+
+
+def ssd_cases(torch, dev):
+    """(case, args) for every phase 8 shape and dt draw, in order from one
+    seeded generator: `args` are `ssd_intra`'s five inputs on `dev`."""
     from repro_torch.models.ssm import chunk_inputs, softplus
 
     gen = torch.Generator(device=dev).manual_seed(2468)
-    geo = {"mamba2": get("mamba2-780m"), "hymba": get("hymba-1.5b")}
-    rows, err = [], 0.0
     for (g, B, S), dt_kind in itertools.product(SSD_CASES, SSD_DT):
-        cfg = geo[g]
-        H, P, N = cfg.n_ssm_heads, cfg.ssm.head_dim, cfg.ssm.d_state
+        H, P, N, chunk = ssd_geometry(g)
 
         def rand(*shape):
             return torch.randn(shape, generator=gen, device=dev)
@@ -1233,44 +1290,81 @@ def phase_ssd_kernel(torch, dev):
             dt = torch.exp(math.log(1e-3) + u * math.log(1e2))
         A = torch.linspace(1.0, 16.0, H, device=dev)
         args = chunk_inputs(rand(B, S, H, P), rand(B, S, N), rand(B, S, N),
-                            dt, A, cfg.ssm.chunk)
-        xc = args[0]
-        nc, Q = xc.shape[1], xc.shape[2]
+                            dt, A, chunk)
+        nc, Q = args[0].shape[1], args[0].shape[2]
+        yield dict(geometry=g, B=B, S=S, dt=dt_kind, nc=nc, Q=Q, H=H, P=P,
+                   N=N), args
+
+
+def ssd_share(torch, got, want):
+    """The largest |got - want| / (SSD_TOL + SSD_TOL |want|), inf where
+    `got` is not finite: within the tolerance iff <= 1."""
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    d = (got - want).abs() / (SSD_TOL + SSD_TOL * want.abs())
+    return float(d.max())
+
+
+def ssd_kernels_per_call(torch, dev):
+    """Device kernels a call of `ssd_intra` launches at the kernels line's
+    shape (the first of `ssd_cases`), by torch.profiler.  Taken before the
+    phases that trace with the profiler: in one full run a profile taken
+    after them showed no device kernel for this call, though it ran."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    case, args = next(ssd_cases(torch, dev))
+    check((case["geometry"], case["B"], case["S"], case["dt"]) == SSD_LINE,
+          "the first SSD case is not the kernels line's")
+    return kernels_per_call(torch, lambda: ops.ssd_intra(*args))
+
+
+def phase_ssd_kernel(torch, dev, per_call):
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    rows, err = [], 0.0
+    for case, args in ssd_cases(torch, dev):
         got = ops.ssd_intra(*args)
         want = ref.ssd_intra_ref(*args)
-        case = dict(geometry=g, B=B, S=S, dt=dt_kind, nc=nc, Q=Q, H=H, P=P,
-                    N=N)
-        errs = {}
+        errs, shares = {}, {}
         for name, a, b in zip(("y", "state"), got, want):
-            d = (a - b).abs()
-            ok = bool((d <= SSD_TOL + SSD_TOL * b.abs()).all()) and bool(
-                torch.isfinite(a).all())
-            errs[name] = float(d.max())
-            check(ok, f"ssd_intra {case}: {name} differs from the plain "
-                      f"version (max abs err {errs[name]})")
+            errs[name] = float((a - b).abs().max())
+            shares[name] = ssd_share(torch, a, b)
+            check(shares[name] <= 1.0,
+                  f"ssd_intra {case}: {name} differs from the plain "
+                  f"version (max abs err {errs[name]}, "
+                  f"{shares[name]} of the tolerance)")
         err = max(err, *errs.values())
-        n_bytes, n_ops = ssd_work(B, nc, Q, H, P, N)
-        t_b, by = bound(n_bytes, n_ops)
+        shape = (case["B"], case["nc"], case["Q"], case["H"], case["P"],
+                 case["N"])
+        hg = ops.heads_per_cta(case["B"], case["nc"], case["H"])
+        work = ssd_work(*shape)
         rows.append(dict(
             name="ssd_intra", **case, max_abs_err_y=errs["y"],
-            max_abs_err_state=errs["state"],
+            max_abs_err_state=errs["state"], tolerance_share_y=shares["y"],
+            tolerance_share_state=shares["state"], heads_per_cta=hg,
+            ctas=-(-case["H"] // hg) * case["B"] * case["nc"],
             ms=device_ms(torch, lambda: ops.ssd_intra(*args)),
             plain_ms=device_ms(torch, lambda: ref.ssd_intra_ref(*args),
                                reps=20),
-            library_ms=None, bound_ms=t_b, bound_by=by, bytes=n_bytes,
-            operations=n_ops))
+            library_ms=None, **ssd_bounds(work),
+            bytes=work[0], operations=work[1], product_operations=work[2]))
     torch.cuda.synchronize()
     for row in rows:
         emit(phase="ssd_kernel_case", **row)
+    check(round(per_call) == 1,
+          f"ssd_intra: a call launched {per_call} kernels, not one")
     emit(phase="ssd_kernel", cases=len(rows), max_abs_err=err,
-         tolerance=SSD_TOL)
+         tolerance=SSD_TOL, max_tolerance_share=max(
+             max(r["tolerance_share_y"], r["tolerance_share_state"])
+             for r in rows), kernels_per_call=per_call)
     line = next(r for r in rows
                 if (r["geometry"], r["B"], r["S"], r["dt"]) == SSD_LINE)
     return {"ssd_intra": dict(
         name="ssd_intra", route="cuda", source=SSD_SRC,
         replaces=SSD_REPLACES, launches=0, max_abs_err=err, ms=line["ms"],
         plain_ms=line["plain_ms"], bound_ms=line["bound_ms"],
-        bound_by=line["bound_by"], library_ms=None)}
+        bound_by=line["bound_by"], bound_f32_ms=line["bound_f32_ms"],
+        library_ms=None)}
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ tensors lie:
 
 The kernel takes any chunk length 1 <= Q <= 128 (the reference's
 `ssd_chunked` gives Q = min(chunk, S)), any state size N and head dims
-P <= 64 that are multiples of 4.
+P <= 64 that are multiples of 4.  One CTA computes C.B^T once for a group
+of heads; `heads_per_cta` reports the group size the kernel plans for a
+shape on the current card.
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("ssd_scan", {
             "ssd_intra_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _P],
+            "ssd_intra_fwd_group": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _P],
+            "ssd_intra_group": [_I, _I, _I],
             "ssd_intra_max_q": [], "ssd_intra_max_p": []})
         lim = (lib.ssd_intra_max_q(), lib.ssd_intra_max_p())
         if lim != (MAX_Q, MAX_P):
@@ -104,3 +109,14 @@ def ssd_intra(xc, Bc, Cc, dtc, cum):
     _build.check_rc(lib, rc, "ssd_intra")
     LAUNCHES["ssd_intra"] += 1
     return y, state
+
+
+def heads_per_cta(B: int, nc: int, H: int) -> int:
+    """Heads one CTA of `ssd_scan.cu` takes for B batches of nc chunks of
+    H heads on the current CUDA device (its plan: the fewest, at most 8,
+    that put all the CTAs in one wave over the card's SMs)."""
+    lib = _lib()
+    hg = lib.ssd_intra_group(B, nc, H)
+    if hg < 1:
+        _build.check_rc(lib, -hg, "ssd_intra_group")
+    return hg

@@ -12,6 +12,12 @@ Inputs are seeded numpy arrays handed to both packages in float32.
   chunk and a Hymba tile (N = 16).  Bound: `KERNEL_TOL`, 1e-4 absolute
   and relative, the reference's own bound for its kernel against its
   oracle (float32 sums over up to 128 terms in other orders).
+* Rounding of the CUDA kernel's tensor-core products: the 3xTF32
+  emulation `ssd_intra_3xtf32_ref` against the same oracle and Pallas
+  kernel within the same `KERNEL_TOL`, on those shapes and on Mamba2's
+  full chunk (Q 128, N 128, P 64, A up to 16, unit-normal B and C) under
+  both of `chip_smoke.py`'s dt draws; one TF32 product alone misses it
+  there, which is why the kernel splits every operand.
 * Mixer: `ssd_chunked` (both impls, with and without an initial state,
   S on and off chunk boundaries), `ssd_step`, `_causal_conv`,
   `sinusoidal_embed`, softplus and the whole `SSM` mixer's prefill and
@@ -40,7 +46,8 @@ from repro.models import ssm as ref_ssm
 from repro.models.rope import sinusoidal_embed as ref_sinusoidal_embed
 from repro_torch.config import ModelConfig, SSMConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_intra_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_intra_3xtf32_ref,
+                                              ssd_intra_ref, tf32_round)
 from repro_torch.models import ssm
 from repro_torch.models.rope import sinusoidal_embed
 
@@ -70,14 +77,17 @@ def intra_inputs(seed, B, nc, Q, H, P, N):
     return xc, Bc, Cc, dtc, cum
 
 
-@pytest.mark.parametrize("B,nc,Q,H,P,N", [
+INTRA_SHAPES = [
     (1, 2, 32, 2, 16, 16),
     (2, 4, 64, 4, 32, 32),
     (1, 1, 128, 8, 64, 128),   # mamba2-780m native tile
     (2, 3, 16, 5, 8, 24),      # odd head count
     (1, 1, 37, 3, 64, 128),    # a prompt shorter than the chunk
     (1, 2, 128, 5, 64, 16),    # hymba-1.5b tile (N = 16)
-])
+]
+
+
+@pytest.mark.parametrize("B,nc,Q,H,P,N", INTRA_SHAPES)
 def test_ssd_intra_matches_reference(B, nc, Q, H, P, N):
     arrs = intra_inputs(B * 1000 + Q, B, nc, Q, H, P, N)
     js = [jnp.asarray(a) for a in arrs]
@@ -93,6 +103,80 @@ def test_ssd_intra_matches_reference(B, nc, Q, H, P, N):
                                        err_msg=f"{what} vs {name}")
             np.testing.assert_allclose(np32(p), np32(w), **KERNEL_TOL,
                                        err_msg=f"plain {what} vs {name}")
+
+
+def mamba2_chunk_inputs(seed, dt_kind):
+    """One Mamba2-780M chunk (Q 128, N 128, P 64) of 4 heads with A =
+    1..16, unit-normal x, B and C, and dt drawn as `chip_smoke.py` phase
+    ssd_kernel draws it: "init" softplus of a unit normal (fast decay),
+    "published" log-uniform over Mamba2's [1e-3, 0.1] (slow decay, every
+    step of the chunk counts)."""
+    rng = np.random.default_rng(seed)
+    Q, H, P, N = 128, 4, 64, 128
+    xc = rng.standard_normal((1, 1, Q, H, P)).astype(np.float32)
+    Bc = rng.standard_normal((1, 1, Q, N)).astype(np.float32)
+    Cc = rng.standard_normal((1, 1, Q, N)).astype(np.float32)
+    if dt_kind == "init":
+        dtc = np.logaddexp(rng.standard_normal((1, 1, Q, H)), 0)
+    else:
+        dtc = np.exp(np.log(1e-3) + rng.random((1, 1, Q, H)) * np.log(1e2))
+    dtc = dtc.astype(np.float32)
+    A = np.linspace(1.0, 16.0, H, dtype=np.float32)
+    cum = np.cumsum(-A * dtc, axis=2, dtype=np.float32)
+    return xc, Bc, Cc, dtc, cum
+
+
+EMULATED = ([pytest.param(intra_inputs(B * 1000 + Q, B, nc, Q, H, P, N),
+                          id=f"{B}-{nc}-{Q}-{H}-{P}-{N}")
+             for B, nc, Q, H, P, N in INTRA_SHAPES]
+            + [pytest.param(mamba2_chunk_inputs(5, kind), id=f"mamba2-{kind}")
+               for kind in ("init", "published")])
+
+
+@pytest.mark.parametrize("arrs", EMULATED)
+def test_ssd_intra_3xtf32_emulation_matches_reference(arrs):
+    """The kernel's 3xTF32 rounding keeps it within the reference's
+    kernel tolerance of the oracle and the Pallas kernel."""
+    js = [jnp.asarray(a) for a in arrs]
+    got = ssd_intra_3xtf32_ref(*map(torch.from_numpy, arrs))
+    for name, want in (("oracle", jax_ssd_intra_ref(*js)),
+                       ("pallas", jax_ssd_intra(*js))):
+        for g, w, what in zip(got, want, ("y_intra", "state")):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(np32(g), np32(w), **KERNEL_TOL,
+                                       err_msg=f"3xTF32 {what} vs {name}")
+
+
+def test_single_tf32_product_misses_the_tolerance():
+    """One TF32 product (hi.hi, no split) is not enough on Mamba2's chunk
+    under either dt draw: its y leaves KERNEL_TOL of the oracle."""
+    for kind in ("init", "published"):
+        arrs = mamba2_chunk_inputs(5, kind)
+        want = np32(jax_ssd_intra_ref(*map(jnp.asarray, arrs))[0])
+        got = np32(ssd_intra_3xtf32_ref(*map(torch.from_numpy, arrs),
+                                        lo=False)[0])
+        share = np.abs(got - want) / (KERNEL_TOL["atol"]
+                                      + KERNEL_TOL["rtol"] * np.abs(want))
+        assert share.max() > 1.0, (kind, share.max())
+
+
+def test_tf32_round_is_cvt_rna():
+    """To nearest, ties away from zero, 13 low bits cleared; the remainder
+    is exact in float32."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0, 0.0, -2.0 ** -130],
+                     dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + ulp, 3.0, 0.0,
+                         -2.0 ** -130], dtype=torch.float32)
+    got = tf32_round(x)
+    assert torch.equal(got, want)
+    assert not (got.view(torch.int32) & 0x1FFF).any()
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(1000)
+                         .astype(np.float32))
+    hi = tf32_round(v)
+    assert torch.equal((hi.double() + (v - hi).double()).float(), v)
 
 
 def test_ssd_intra_masks_padded_steps_exactly():
