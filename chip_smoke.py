@@ -31,9 +31,16 @@ Phases:
      than b, equal best scores on both sides of a tile edge), a second
      identical call over several CTAs equal to the first, and one
      device kernel a call of `sched_score_argmax` and `sched_score_topb`
-     (torch.profiler); times (CUDA events, median of 60 calls after
-     warm-up) of the kernel, its plain version and the nearest single
-     PyTorch call;
+     (torch.profiler); `sched_compact_topb` over slot pools of 1 to
+     100,000 slots (`compact_cases`: one CTA's tile and its edges, two
+     and 25 tiles, densities 0 to 1, b = 1, 16 and 128, the route row,
+     all-equal scores, live scores at, below NEG and -inf), outputs
+     filled with a sentinel first, a repeated call past one tile, and
+     one device kernel a call at 4096 and 100,000 slots; times (CUDA
+     events, median of 60 calls after warm-up) of each kernel, its plain
+     version and the nearest single PyTorch call (for compaction, which
+     none computes, the plain compaction and the top-b kernel after
+     it);
   4. paper cell: `run_cell` on the card and on the CPU with the same
      inputs — equal decision traces, equal terminal statuses, metrics
      within the tests' tolerance;
@@ -302,6 +309,104 @@ def same_bits(torch, a, b):
     return torch.equal(a, b)
 
 
+# slot pools of `sched_compact_topb`: one CTA's tile and its edges, two
+# tiles, and the dense path's 100,000 slots (25 tiles)
+COMPACT_WIDTHS = (1, 7, SCHED_TILE - 1, SCHED_TILE, SCHED_TILE + 1,
+                  2 * SCHED_TILE, 100_000)
+COMPACT_TIMED = (SCHED_TILE, 100_000)
+COMPACT_GUARD = 256   # lanes past the compacted ids that must stay unwritten
+
+
+def compact_pool(torch, gen, dev, w, density, **kw):
+    """A seeded slot pool (slot_req, alive, wait, cost, urgency, weights,
+    route) on `dev`, features as `sched_feats` makes them."""
+    wait, cost, urg, alive, wts, r = sched_feats(torch, gen, dev, w, density,
+                                                 **kw)
+    req = torch.randperm(3 * w, generator=gen)[:w].to(torch.int32).to(dev)
+    return req, alive, wait, cost, urg, wts, r
+
+
+def below_neg_pool(torch, dev, w):
+    """Slots 0, 2, w/2 and w-1 dead, so the sentinel lanes are the last
+    four; every live slot scores -3e30, below NEG, except slot 1 (an
+    ordinary score), slot w/2 + 1 (one that rounds to NEG exactly: it
+    ties the sentinel lanes and ranks first by its lower index) and slot
+    w - 2 (-inf).  `lax.top_k` over the compacted pool ranks: slot 1,
+    slot w/2 + 1, the four sentinel lanes, then the -3e30 slots in
+    order, -inf last."""
+    alive = torch.ones(w, dtype=torch.bool)
+    alive[[0, 2, w // 2, w - 1]] = False
+    urg = torch.full((w,), -3e30)
+    urg[[1, w // 2 + 1, w - 2]] = torch.tensor([0.0, -1e30, -float("inf")])
+    one = torch.ones(w)
+    wts = torch.tensor([1.0, 1.0, 1.0, 100.0])
+    return [t.to(dev) for t in (torch.arange(w, dtype=torch.int32), alive,
+                                one, one.clone(), urg, wts)] + [None]
+
+
+def compact_cases(torch, dev):
+    """Phase 3's cases of `sched_compact_topb`: (label, b, pool)."""
+    gen = torch.Generator().manual_seed(2468)
+    cases = []
+
+    def add(w, b, density, **kw):
+        label = f"W={w} b={b} density={density}" + "".join(
+            f" {k}={v}" for k, v in kw.items())
+        cases.append((label, min(b, w),
+                      compact_pool(torch, gen, dev, w, density, **kw)))
+    for w in COMPACT_WIDTHS:
+        for b in (1, 16, 128):
+            for density in (0.0, 0.05, 0.6, 1.0):
+                add(w, b, density)
+            add(w, b, 0.6, route=True)
+        add(w, 64, 1.0, ties=True)   # all equal: the lowest positions
+    for w in (8, 2 * SCHED_TILE + 8):
+        for b in (4, 8):
+            cases.append((f"W={w} b={b} below NEG", b,
+                          below_neg_pool(torch, dev, w)))
+    return cases
+
+
+def compact_call(torch, lib, pool, b, workspace=None, fill=True):
+    """`lib`'s sched_compact_topb on `pool`, as `ops.sched_compact_topb`
+    calls it (`workspace(w)` gives its (keys, counters, status); None
+    calls a one-CTA build of the earlier signature, without them).  With
+    `fill` the outputs start as a sentinel (-7, NaN), so a lane left
+    unwritten shows, and COMPACT_GUARD lanes past the ids must keep it.
+    Returns (compacted, n_live, idx, score) and whether the guard held."""
+    req, alive, wait, cost, urg, wts, r = pool
+    w, dev = req.shape[0], req.device
+    make = torch.full if fill else (lambda shape, _, **kw: torch.empty(
+        shape, **kw))
+    ids = make((w + COMPACT_GUARD,), -7, dtype=torch.int32, device=dev)
+    n_live = make((), -7, dtype=torch.int32, device=dev)
+    idx = make((b,), -7, dtype=torch.int32, device=dev)
+    score = make((b,), float("nan"), dtype=torch.float32, device=dev)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (req, alive, wait, cost, urg, r, wts)]
+    outs = [t.data_ptr() for t in (ids, n_live, idx, score)]
+    stream = torch.cuda.current_stream().cuda_stream
+    if workspace is None:
+        rc = lib.sched_compact_topb(*ptrs, w, b, *outs, stream)
+    else:
+        ws = [t.data_ptr() for t in workspace(w)]
+        rc = lib.sched_compact_topb(*ptrs, w, b, *ws, *outs, stream)
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"sched_compact_topb: CUDA error {rc}: {msg}")
+    guard = not fill or bool((ids[w:] == -7).all())
+    return (ids[:w], n_live, idx, score), guard
+
+
+def compact_bound(w, b, route=False):
+    """`sched_compact_topb`'s bound: the ids, alive and 3-4 float32 rows
+    and the weights read once, the compacted ids, n_live and the b ranks
+    written; 9 float32 operations a slot."""
+    nf = 4 if route else 3
+    return bound(w * (4 + 1 + 4 * nf) + 4 * (nf + 1) + w * 4 + 4 + b * 8,
+                 w * 9)
+
+
 def kernels_per_call(torch, fn, calls=10):
     """Device kernels a call of `fn` launches, by torch.profiler over
     `calls` calls (the trace can miss the first kernel event)."""
@@ -335,8 +440,10 @@ def phase_kernels(torch, dev):
            "sched_compact_topb": 0.0}
 
     def note_err(name, got_score, want_score):
-        err[name] = max(err[name],
-                        float((got_score - want_score).abs().max()))
+        # equal infinities differ by 0, not NaN
+        diff = torch.where(got_score == want_score, 0.0,
+                           (got_score - want_score).abs())
+        err[name] = max(err[name], float(diff.max()))
     cases = 0
     for name, label, b, f in sched_cases(torch, dev):
         wait, cost, urg, mask, w, r = f
@@ -360,17 +467,28 @@ def phase_kernels(torch, dev):
             check(all(map(same, first, second)),
                   f"sched_score n={n}: a repeated call differs")
             cases += 1
-    for density in (0.0, 0.05, 0.6, 1.0):
-        for b in (1, 16, 128):
-            wait, cost, urg, alive, w, _ = feats(4096, density)
-            req = torch.randperm(3 * 4096, generator=gen)[:4096].to(
-                torch.int32).to(dev)
-            got = ops.sched_compact_topb(req, alive, wait, cost, urg, w, b)
-            want = ref.sched_compact_topb_ref(req, alive, wait, cost, urg, w,
-                                              b)
-            check(all(map(same, got, want)),
-                  f"sched_compact_topb W=4096 b={b} density={density}")
-            note_err("sched_compact_topb", got[3], want[3])
+    # compaction: outputs filled with a sentinel first, and the lanes
+    # past the ids must keep it; a second identical call past one tile
+    # must repeat the first (the ticket, done counter and epoch are set
+    # for the next call)
+    lib = ops._lib()
+
+    def compact(pool, b):
+        return compact_call(torch, lib, pool, b,
+                            lambda n: ops._compact_workspace(n, dev))
+    for label, b, pool in compact_cases(torch, dev):
+        req, alive, wait, cost, urg, w, r = pool
+        want = ref.sched_compact_topb_ref(req, alive, wait, cost, urg, w, b,
+                                          r)
+        got, guard = compact(pool, b)
+        check(guard and all(map(same, got, want)),
+              f"sched_compact_topb {label}")
+        note_err("sched_compact_topb", got[3], want[3])
+        cases += 1
+        if req.shape[0] > SCHED_TILE and b == 16:
+            again, guard = compact(pool, b)
+            check(guard and all(map(same, got, again)),
+                  f"sched_compact_topb {label}: a repeated call differs")
             cases += 1
     torch.cuda.synchronize()
     per_call = {}
@@ -380,6 +498,10 @@ def phase_kernels(torch, dev):
             torch, lambda: ops.sched_score_argmax(wait, cost, urg, mask, w))
         per_call[f"sched_score_topb n={n} b=16"] = kernels_per_call(
             torch, lambda: ops.sched_score_topb(wait, cost, urg, mask, w, 16))
+    for n in COMPACT_TIMED:
+        pool = compact_pool(torch, gen, dev, n, 0.6)
+        per_call[f"sched_compact_topb W={n} b=16"] = kernels_per_call(
+            torch, lambda: ops.sched_compact_topb(*pool[:6], 16))
     emit(phase="kernels_vs_plain", cases=cases, exact=True,
          kernels_per_call=per_call)
     check(all(round(v) == 1 for v in per_call.values()),
@@ -424,17 +546,22 @@ def phase_kernels(torch, dev):
                 wait, cost, urg, mask, w)),
             library_ms=device_ms(torch, lambda: torch.argmax(scores)),
             bound_ms=t_b, bound_by=by))
-    wait, cost, urg, alive, w, _ = feats(4096, 0.6)
-    req = torch.arange(4096, dtype=torch.int32, device=dev)
-    t_b, by = bound(4096 * (4 + 1 + 3 * 4) + 16 + 4096 * 4 + 4 + 16 * 8,
-                    4096 * 9)
-    rows.append(dict(
-        name="sched_compact_topb", n=4096, b=16,
-        ms=device_ms(torch, lambda: ops.sched_compact_topb(
-            req, alive, wait, cost, urg, w, 16)),
-        plain_ms=device_ms(torch, lambda: ref.sched_compact_topb_ref(
-            req, alive, wait, cost, urg, w, 16)),
-        library_ms=None, bound_ms=t_b, bound_by=by))
+    # compaction: no single PyTorch call computes it; `unfused_ms` is the
+    # plain compaction (cumsum + scatter) and then the top-b kernel over
+    # the compacted pool
+    for n in COMPACT_TIMED:
+        pool = compact_pool(torch, gen, dev, n, 0.6)
+        t_b, by = compact_bound(n, 16)
+        rows.append(dict(
+            name="sched_compact_topb", n=n, b=16,
+            ms=device_ms(torch, lambda: ops.sched_compact_topb(
+                *pool[:6], 16)),
+            plain_ms=device_ms(torch, lambda: ref.sched_compact_topb_ref(
+                *pool[:6], 16)),
+            library_ms=None,
+            unfused_ms=device_ms(torch, lambda: unfused_compact_topb(
+                torch, ops, ref, pool, 16)),
+            bound_ms=t_b, bound_by=by))
     for row in rows:
         emit(phase="kernel_time", **row)
     src = "src/repro_torch/kernels/sched_score/sched_score.cu"
@@ -451,7 +578,19 @@ def phase_kernels(torch, dev):
             launches=0, max_abs_err=err[name], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"])
+        if "unfused_ms" in row:
+            out[name]["unfused_ms"] = row["unfused_ms"]
     return out
+
+
+def unfused_compact_topb(torch, ops, ref, pool, b):
+    """The two-pass path on the card: the plain compaction, then the
+    top-b kernel over the compacted pool."""
+    req, alive, wait, cost, urg, w, r = pool
+    creq, n_live, mask, cwait, ccost, curg, croute = ref.compact_pool_ref(
+        req, alive, wait, cost, urg, r)
+    return (creq, n_live,
+            *ops.sched_score_topb(cwait, ccost, curg, mask, w, b, croute))
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,8 @@ tensors lie:
 
 * on CUDA it launches the hand kernel from `sched_score.cu` on the
   current stream (outputs allocated here with `torch.empty`; the
-  top-b and argmax workspace once per device, `_workspace`), raises if
-  the launch reports an error, and adds one to its count in
-  `LAUNCHES`;
+  kernels' workspace once per device, `_workspace`), raises if the
+  launch reports an error, and adds one to its count in `LAUNCHES`;
 * on the CPU it calls the plain version in `ref.py`;
 * anywhere else it raises.
 
@@ -25,9 +24,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.sched_score import ref
 
-TILE = 4096   # lanes per CTA of top-b and argmax (sched_score.cu TILE)
+TILE = 4096   # lanes (slots) per CTA of every kernel (sched_score.cu TILE)
 BMAX = 128    # largest b, as in the reference
-WMAX = 4096   # largest slot pool of sched_compact_topb
 
 LAUNCHES = {"sched_score_topb": 0, "sched_score_argmax": 0,
             "sched_compact_topb": 0}
@@ -38,7 +36,7 @@ _SIGNATURES = {
     "sched_score_topb": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "sched_score_argmax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "sched_compact_topb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                           _P, _P],
+                           _P, _P, _P, _P, _P],
 }
 
 
@@ -98,27 +96,42 @@ def _features(name, wait, cost, urgency, mask, weights, route):
     return n, dev
 
 
-_WORKSPACE: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+_WORKSPACE: dict[torch.device, tuple[torch.Tensor, ...]] = {}
 
 
 def _workspace(n: int, dev):
-    """The (keys, done) workspace of a top-b or argmax call over n lanes.
+    """The (keys, counters, status) workspace of a call over n lanes.
 
     Past one tile each CTA writes its best keys (at most BMAX) to
-    `keys`, and counts itself in on the `done` counter; the last CTA to
-    arrive merges them and sets `done` back to 0.  So both are made
-    once per device (`done` zeroed then; `keys` grown when a longer
-    queue comes), not on every call, and a call launches one kernel.
-    One workspace serves one stream at a time: calls in flight on two
-    streams at once would share the counter."""
-    need = -(-n // TILE) * BMAX
-    keys, done = _WORKSPACE.get(dev, (None, None))
-    if done is None:
-        done = torch.zeros((1,), dtype=torch.int32, device=dev)
-    if keys is None or keys.numel() < need:
-        keys = torch.empty((need,), dtype=torch.int64, device=dev)
-    _WORKSPACE[dev] = (keys, done)
-    return keys, done
+    `keys`, and counts itself in on a done counter (`counters[0]` for
+    top-b and argmax, `counters[1]` for compaction); the last CTA to
+    arrive merges them and sets it back to 0.  Compaction also takes its
+    tiles from a ticket (`counters[2]`), which the last CTA sets back to
+    0, and publishes each tile's live count in a status word tagged with
+    an epoch (`counters[3]`) that the last CTA advances, so the words of
+    an earlier call never read as this call's.  So all three are made
+    once per device (`counters` and `status` zeroed then; `keys` and
+    `status` grown when a longer queue comes), not on every call, and a
+    call launches one kernel.  One workspace serves one stream at a
+    time: calls in flight on two streams at once would share the
+    counters."""
+    tiles = -(-n // TILE)
+    keys, counters, status = _WORKSPACE.get(dev, (None, None, None))
+    if counters is None:
+        counters = torch.zeros((4,), dtype=torch.int32, device=dev)
+    if keys is None or keys.numel() < tiles * BMAX:
+        keys = torch.empty((tiles * BMAX,), dtype=torch.int64, device=dev)
+    if status is None or status.numel() < tiles:
+        status = torch.zeros((tiles,), dtype=torch.int64, device=dev)
+    _WORKSPACE[dev] = (keys, counters, status)
+    return keys, counters, status
+
+
+def _compact_workspace(w: int, dev):
+    """Compaction's (keys, counters, status): its done counter, ticket
+    and epoch are `counters[1:]`."""
+    keys, counters, status = _workspace(w, dev)
+    return keys, counters[1:], status
 
 
 def _ptr(t):
@@ -143,7 +156,7 @@ def sched_score_topb(wait, cost, urgency, mask, weights, b: int, route=None):
     lib = _lib()
     idx = torch.empty((b,), dtype=torch.int32, device=dev)
     score = torch.empty((b,), dtype=torch.float32, device=dev)
-    keys, done = _workspace(n, dev)
+    keys, done, _ = _workspace(n, dev)
     rc = lib.sched_score_topb(
         _ptr(wait), _ptr(cost), _ptr(urgency), _ptr(route), _ptr(mask),
         _ptr(weights), n, b, _ptr(keys), _ptr(done), _ptr(idx), _ptr(score),
@@ -164,7 +177,7 @@ def sched_score_argmax(wait, cost, urgency, mask, weights, route=None):
     lib = _lib()
     idx = torch.empty((), dtype=torch.int32, device=dev)
     score = torch.empty((), dtype=torch.float32, device=dev)
-    keys, done = _workspace(n, dev)
+    keys, done, _ = _workspace(n, dev)
     rc = lib.sched_score_argmax(
         _ptr(wait), _ptr(cost), _ptr(urgency), _ptr(route), _ptr(mask),
         _ptr(weights), n, _ptr(keys), _ptr(done), _ptr(idx), _ptr(score),
@@ -176,14 +189,15 @@ def sched_score_argmax(wait, cost, urgency, mask, weights, route=None):
 
 def sched_compact_topb(slot_req, alive, wait, cost, urgency, weights, b: int,
                        route=None):
-    """Fused stable compaction + score + top-b over a slot pool of width
-    1 <= w <= 4096.
+    """Fused stable compaction + score + top-b over a slot pool of any
+    width w >= 1.
 
     slot_req: (w,) int32 request ids in slot order; alive: (w,) bool;
     wait/cost/urgency (and route): (w,) float32 per slot, pre-compaction.
     Returns (compacted (w,) int32 with -1 tail, n_live () int32, idx
-    (b,) int32 in compacted coordinates, score (b,) float32); ranks at
-    or past n_live are (rank, NEG)."""
+    (b,) int32 in compacted coordinates, score (b,) float32), ranked as
+    the top-b of the compacted pool with lanes n_live .. w-1 at NEG
+    (`ref.sched_compact_topb_ref`)."""
     w = slot_req.shape[0]
     ts = [slot_req, alive, wait, cost, urgency] + (
         [] if route is None else [route])
@@ -195,9 +209,6 @@ def sched_compact_topb(slot_req, alive, wait, cost, urgency, weights, b: int,
     if not 1 <= b <= BMAX:
         raise ValueError(f"sched_compact_topb: need 1 <= b <= {BMAX}, "
                          f"got {b}")
-    if w > WMAX:
-        raise ValueError(f"sched_compact_topb: slot pool of {w} exceeds "
-                         f"the one-CTA limit {WMAX}")
     if dev.type == "cpu":
         return ref.sched_compact_topb_ref(slot_req, alive, wait, cost,
                                           urgency, weights, b, route)
@@ -206,10 +217,12 @@ def sched_compact_topb(slot_req, alive, wait, cost, urgency, weights, b: int,
     n_live = torch.empty((), dtype=torch.int32, device=dev)
     idx = torch.empty((b,), dtype=torch.int32, device=dev)
     score = torch.empty((b,), dtype=torch.float32, device=dev)
+    keys, counters, status = _compact_workspace(w, dev)
     rc = lib.sched_compact_topb(
         _ptr(slot_req), _ptr(alive), _ptr(wait), _ptr(cost), _ptr(urgency),
-        _ptr(route), _ptr(weights), w, b, _ptr(out_req), _ptr(n_live),
-        _ptr(idx), _ptr(score), torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(route), _ptr(weights), w, b, _ptr(keys), _ptr(counters),
+        _ptr(status), _ptr(out_req), _ptr(n_live), _ptr(idx), _ptr(score),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check_rc(lib, rc, "sched_compact_topb")
     LAUNCHES["sched_compact_topb"] += 1
     return out_req, n_live, idx, score

@@ -15,9 +15,10 @@ give the same bits as the CUDA kernels in `sched_score.cu`:
 
 `ops.py` calls these for tensors on the CPU; the tests and
 `chip_smoke.py` hold the kernels against them.
-`sched_score_topb_split_ref` follows the CUDA kernel's partition (each
-CTA tile ranks its own lanes, then the tiles' lists are merged), for the
-tests to show that the partition changes no bit.
+`sched_score_topb_split_ref` and `sched_compact_topb_split_ref` follow
+the CUDA kernels' partition (each CTA tile ranks its own lanes, then the
+tiles' lists are merged), for the tests to show that the partition
+changes no bit.
 """
 from __future__ import annotations
 
@@ -81,12 +82,10 @@ def _compact(values, target, fill, w: int):
     return out[:w]
 
 
-def sched_compact_topb_ref(slot_req, alive, wait, cost, urgency, weights,
-                           b: int, route=None):
-    """Stable compaction of the slot pool, then the top-b ranking over
-    the compacted pool with mask = index < n_live.  Returns (compacted
-    (w,) int32 with -1 tail, n_live () int32, idx (b,) int32 in
-    compacted coordinates, score (b,) float32)."""
+def compact_pool_ref(slot_req, alive, wait, cost, urgency, route=None):
+    """The two-pass path's compaction (cumsum + scatter): (compacted ids
+    (w,) int32 with -1 tail, n_live () int32, mask = index < n_live,
+    and the compacted wait, cost, urgency and route)."""
     w = slot_req.shape[0]
     pos = torch.cumsum(alive, 0, dtype=torch.int32) - 1
     target = torch.where(alive, pos, w).long()
@@ -97,6 +96,52 @@ def sched_compact_topb_ref(slot_req, alive, wait, cost, urgency, weights,
     croute = None if route is None else _compact(route, target, 0.0, w)
     n_live = alive.sum(dtype=torch.int32)
     mask = torch.arange(w, device=alive.device) < n_live
+    return creq, n_live, mask, cwait, ccost, curg, croute
+
+
+def sched_compact_topb_ref(slot_req, alive, wait, cost, urgency, weights,
+                           b: int, route=None):
+    """Stable compaction of the slot pool, then the top-b ranking over
+    the compacted pool with mask = index < n_live.  Returns (compacted
+    (w,) int32 with -1 tail, n_live () int32, idx (b,) int32 in
+    compacted coordinates, score (b,) float32)."""
+    creq, n_live, mask, cwait, ccost, curg, croute = compact_pool_ref(
+        slot_req, alive, wait, cost, urgency, route)
     idx, score = sched_score_topb_ref(cwait, ccost, curg, mask, weights, b,
                                       croute)
     return creq, n_live, idx, score
+
+
+def sched_compact_topb_split_ref(slot_req, alive, wait, cost, urgency,
+                                 weights, b: int, route=None, *, tile: int):
+    """`sched_compact_topb_ref` computed as the kernel partitions it: the
+    live slots of each tile of `tile` slots, the exclusive prefix of those
+    counts, each tile's ids at their compacted positions and its best L
+    (b rounded up to a power of two) live slots ranked by compacted
+    position; then the lists, in tile order, with the sentinel keys
+    (NEG at positions n_live .. min(w, n_live + L) - 1) after them,
+    ranked again.  Lists in tile order and sentinels last keep equal
+    scores in compacted order, so ties still go to the lowest index."""
+    w = slot_req.shape[0]
+    score = scores_ref(wait, cost, urgency, alive, weights, route)
+    keep = 1 << (b - 1).bit_length()
+    creq = torch.full((w,), -1, dtype=torch.int32, device=slot_req.device)
+    idx, val = [], []
+    excl = 0
+    for start in range(0, w, tile):
+        live = alive[start:start + tile]
+        pos = excl + torch.cumsum(live, 0, dtype=torch.int32)[live] - 1
+        creq[pos.long()] = slot_req[start:start + tile][live].to(torch.int32)
+        part = score[start:start + tile][live]
+        i, s = _rank(part, min(keep, part.shape[0]))
+        idx.append(pos[i.long()])
+        val.append(s)
+        excl += int(live.sum())
+    n_tail = max(0, min(w, excl + keep) - excl)
+    idx.append(torch.arange(excl, excl + n_tail, dtype=torch.int32,
+                            device=slot_req.device))
+    val.append(torch.full((n_tail,), NEG, dtype=score.dtype,
+                          device=score.device))
+    j, s = _rank(torch.cat(val), b)
+    n_live = torch.tensor(excl, dtype=torch.int32, device=slot_req.device)
+    return creq, n_live, torch.cat(idx)[j.long()], s

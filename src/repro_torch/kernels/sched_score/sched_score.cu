@@ -41,9 +41,6 @@ constexpr int TILE = NT * E;      // 4096 lanes per CTA
 constexpr int WARPS = NT / 32;
 constexpr int WLIST = 32 * E;     // keys a warp sorts: 128
 constexpr int CAP = 128;          // candidates one warp sorts
-constexpr int CTPB = 1024;        // threads of the one compaction CTA
-constexpr int CEPT = 4;           // slots per thread
-constexpr int WMAX = CTPB * CEPT; // largest slot pool: 4096
 constexpr int BMAX = 128;         // largest b, as in the reference
 static_assert(WLIST == BMAX, "a warp's sorted keys hold a whole list");
 
@@ -206,18 +203,23 @@ __device__ __forceinline__ void warp_sort(u64 (&k)[E]) {
 }
 
 // Merge two lists of L keys, each best first, into the best L of both,
-// best first: the warp holds list A at positions p < L; B is read
-// reversed from shared memory, so max(A[p], B[L-1-p]) is a bitonic
-// sequence holding the L largest keys of A and B, and log2(L)
-// half-cleaner stages sort it.
-template <int L>
-__device__ __forceinline__ void merge_list(u64 (&k)[E], const u64* other) {
+// best first: the warp holds list A at positions p < L; B[q] is
+// other(q), read reversed, so max(A[p], B[L-1-p]) is a bitonic sequence
+// holding the L largest keys of A and B, and log2(L) half-cleaner
+// stages sort it.
+template <int L, typename F>
+__device__ __forceinline__ void merge_with(u64 (&k)[E], F other) {
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int p = wpos(e);
-    if (p < L) k[e] = umax(k[e], other[L - 1 - p]);
+    if (p < L) k[e] = umax(k[e], other(L - 1 - p));
   }
   if constexpr (L > 1) bitonic_steps<2 * WLIST, L / 2>(k);
+}
+
+template <int L>
+__device__ __forceinline__ void merge_list(u64 (&k)[E], const u64* other) {
+  merge_with<L>(k, [other](int q) { return other[q]; });
 }
 
 // The CTA's best L keys from each warp's sorted list (best first at
@@ -333,6 +335,39 @@ __device__ __forceinline__ void cta_top(u64 (&k)[E], TopSmem<L>& sm) {
   cta_merge<L>(k, sm.lists);
 }
 
+// The last CTA's merge of the nb CTAs' lists of L keys in ws (list c at
+// ws[c * L ...], best first): it loads them position-major (slot s holds
+// position s / m of list s % m, so the lists' heads come first) up to
+// TILE keys a round, its running best as one more list after the first,
+// and runs cta_top on them.  The best L are left in warp 0's registers.
+template <int L>
+__device__ __forceinline__ void merge_lists(u64 (&k)[E], TopSmem<L>& sm,
+                                            const u64* ws, int nb) {
+  const int warp = threadIdx.x >> 5;
+  for (int next = 0; next < nb;) {
+    const int carry = next > 0 ? 1 : 0;  // the running best, list 0
+    const int m = min(nb - next, TILE / L - carry) + carry;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int slot = e * NT + static_cast<int>(threadIdx.x);
+      const int q = slot % m, p = slot / m;
+      k[e] = p >= L ? 0ull
+             : q < carry ? sm.carry[p]
+                         : __ldcg(ws + (next + q - carry) * L + p);
+    }
+    next += m - carry;
+    cta_top<L>(k, sm);
+    if (next < nb) {
+      if (warp == 0) {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (wpos(e) < L) sm.carry[wpos(e)] = k[e];
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // After the CTA's result has been written to the workspace and fenced
 // by its writers: counts this CTA in and tells every thread whether it
 // was the last of the grid to arrive.
@@ -404,11 +439,8 @@ argmax_kernel(const float* __restrict__ wait, const float* __restrict__ cost,
 //   rounded up to a power of two) in warp 0, which up to 4096 lanes is
 //   the answer.  Past one tile each CTA writes its list to
 //   ws[blockIdx.x * L ...] and counts itself in on `done`; the last CTA
-//   to arrive loads the nb lists position-major (slot s holds position
-//   s / m of list s % m, so the lists' heads come first) up to TILE
-//   keys a round, its running best as one more list after the first,
-//   and runs cta_top on them; then it writes the answer and sets `done`
-//   back to 0 for the next call (or a graph replay).
+//   to arrive merges the nb lists (merge_lists), writes the answer and
+//   sets `done` back to 0 for the next call (or a graph replay).
 // ---------------------------------------------------------------------
 template <int L>
 __global__ void __launch_bounds__(NT)
@@ -430,29 +462,7 @@ topb_kernel(const float* __restrict__ wait, const float* __restrict__ cost,
       __threadfence();
     }
     if (!last_to_arrive(done)) return;
-    const int nb = static_cast<int>(gridDim.x);
-    for (int next = 0; next < nb;) {
-      const int carry = next > 0 ? 1 : 0;  // the running best, list 0
-      const int m = min(nb - next, TILE / L - carry) + carry;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int slot = e * NT + static_cast<int>(threadIdx.x);
-        const int q = slot % m, p = slot / m;
-        k[e] = p >= L ? 0ull
-               : q < carry ? sm.carry[p]
-                           : __ldcg(ws + (next + q - carry) * L + p);
-      }
-      next += m - carry;
-      cta_top<L>(k, sm);
-      if (next < nb) {
-        if (warp == 0) {
-#pragma unroll
-          for (int e = 0; e < E; ++e)
-            if (wpos(e) < L) sm.carry[wpos(e)] = k[e];
-        }
-        __syncthreads();
-      }
-    }
+    merge_lists<L>(k, sm, ws, static_cast<int>(gridDim.x));
     if (threadIdx.x == 0) *done = 0u;
   }
   if (warp == 0) {
@@ -468,24 +478,124 @@ topb_kernel(const float* __restrict__ wait, const float* __restrict__ cost,
 }
 
 // ---------------------------------------------------------------------
-// sched_compact_topb.
+// sched_compact_topb, 1 <= b <= 128, any pool width w >= 1.
 // Replaces: src/repro/kernels/sched_score/sched_score.py:_compact_topb_kernel
 //   (public sched_compact_topb).
-// Bound on the card: bytes.  It reads the (W,) pool once (slot ids, the
-//   alive mask and 3-4 float32 rows: ~70-86 KB at W = 4096) and writes
-//   the compacted (W,) ids; launch latency dominates at this size.
-// Design: W <= 4096, so one CTA of 1024 threads holds the whole pool,
-//   4 consecutive slots a thread.  A block exclusive scan of `alive`
-//   (warp shuffles, then one warp over the 32 warp totals) gives each
-//   survivor its compacted position; the CTA writes the live prefix,
-//   the -1 tail and n_live.  The same CTA keys the alive slots by slot
-//   index — compaction is stable, so slot order is compacted order and
-//   first-occurrence ties carry over — runs b rounds of the block max,
-//   and the winner's owner writes its compacted position.  Ranks at or
-//   past n_live become (rank, NEG), as lax.top_k over the sentinel tail
-//   gives them.
+// Bound on the card: bytes.  It reads the (w,) pool once (slot ids, the
+//   alive mask and 3-4 float32 rows: 17-21 bytes a slot) and writes the
+//   compacted (w,) ids; at the scale window's w = 4096 launch latency
+//   dominates.
+// Ranks: the two-pass oracle ranks the compacted pool's first w lanes,
+//   live lanes with their scores and lanes n_live .. w-1 with NEG, ties
+//   to the lowest compacted index.  So a live slot is keyed by its
+//   compacted position (stable compaction keeps slot order, so ties
+//   carry over), and the final selection adds the sentinel keys
+//   make_key(NEG, j) for j in [n_live, min(w, n_live + L)): make_key's
+//   index half ranks them after a live NEG and before a live score
+//   below NEG (-inf, -3e30) exactly as lax.top_k does.
+// Design: one launch at every w.  A CTA of 1024 threads takes a tile of 4096
+//   slots, 4 consecutive slots a thread (16-byte loads where the pointers
+//   allow), and counts its live slots with four ballots a warp and one
+//   shuffle scan over the warp totals.  It keys its live slots by their
+//   position in the tile and cta_top leaves its best L in warp 0 (a ragged
+//   tile first spreads its keys over the warps through shared memory, so that
+//   cta_top's exact filter does not fall back to a sort in every warp).  Up to
+//   4096 slots that is the whole pool.  Past one tile the CTAs take their
+//   tiles from an atomic ticket, in the order they start, and find the live
+//   slots before their tile by a single-pass decoupled look-back over
+//   per-tile status words: (epoch << 2 | state, count), state AGG (the tile's
+//   own count), INC (the inclusive count) or TAIL (INC, and the tile's -1
+//   lanes written).  A CTA waits only on tiles that took earlier tickets, so
+//   on CTAs that have started.  The epoch, which the last CTA of every call
+//   advances, tells this call's words from the last call's, so no call needs
+//   a zeroing launch.  Each CTA shifts its keys by P_c, the live slots before
+//   its tile, to compacted positions.  Output lanes: tile c fills its own
+//   lanes at or past its inclusive count I_c with -1 and then publishes TAIL;
+//   its live ids go, coalesced from shared memory, to [P_c, I_c), after the
+//   earlier tiles whose lanes that range covers have published TAIL (their -1
+//   lanes below n_live are the ones it overwrites).  Then each CTA writes its
+//   list to the workspace and counts itself in; the last CTA to arrive merges
+//   the lists (merge_lists), adds the sentinel keys, writes n_live and the
+//   ranks, sets the ticket and the done counter back to 0 and advances the
+//   epoch.  One workspace serves one stream at a time.
 // ---------------------------------------------------------------------
-__global__ void __launch_bounds__(CTPB)
+constexpr uint32_t ST_AGG = 1u, ST_INC = 2u, ST_TAIL = 3u;
+constexpr uint32_t TAG_MASK = 0x3FFFFFFFu;  // epoch bits a status word keeps
+constexpr long long SPIN_LIMIT = 1ll << 24;  // polls before a wait traps
+
+__device__ __forceinline__ u64 status_word(uint32_t tag, uint32_t state,
+                                           int value) {
+  return (static_cast<u64>((tag << 2) | state) << 32) |
+         static_cast<uint32_t>(value);
+}
+
+// The word's state if it was written in this call (epoch tag `tag`), else
+// 0.  The zeroed words of a new workspace have state 0.
+__device__ __forceinline__ uint32_t word_state(u64 s, uint32_t tag) {
+  const uint32_t hi = static_cast<uint32_t>(s >> 32);
+  return (hi >> 2) == tag ? (hi & 3u) : 0u;
+}
+
+__device__ __forceinline__ u64 load_status(const u64* p) {
+  return *reinterpret_cast<const volatile u64*>(p);
+}
+
+__device__ __forceinline__ void store_status(u64* p, u64 v) {
+  *reinterpret_cast<volatile u64*>(p) = v;
+}
+
+// Polls tile c's status word until it has this call's tag and at least
+// state `least`; a protocol fault (two streams sharing a workspace)
+// traps instead of hanging the card.
+__device__ __forceinline__ u64 wait_status(const u64* status, int c,
+                                           uint32_t tag, uint32_t least) {
+  for (long long spins = 0;; ++spins) {
+    const u64 s = load_status(status + c);
+    if (word_state(s, tag) >= least) return s;
+    if (spins == SPIN_LIMIT) __trap();
+  }
+}
+
+// The live slots before tile `tile` (warp 0, every lane): each lane
+// reads one of the 32 tiles before it; the nearest inclusive count plus
+// the aggregates after it is the answer, else all 32 aggregates are
+// added and the window moves back.
+__device__ __forceinline__ int look_back(const u64* status, int tile,
+                                         uint32_t tag) {
+  const int lane = threadIdx.x & 31;
+  int excl = 0;
+  for (int top = tile - 1;; top -= 32) {
+    const int c = top - lane;
+    uint32_t state = ST_INC, value = 0u;  // before tile 0: an inclusive 0
+    if (c >= 0) {
+      const u64 s = wait_status(status, c, tag, ST_AGG);
+      state = word_state(s, tag);
+      value = static_cast<uint32_t>(s);
+    }
+    const unsigned inc = __ballot_sync(0xffffffffu, state >= ST_INC);
+    const int stop = inc != 0u ? __ffs(inc) - 1 : 31;
+    int v = lane <= stop ? static_cast<int>(value) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (inc != 0u) return excl;
+  }
+}
+
+template <int L>
+struct CompactSmem {
+  union {
+    TopSmem<L> top;  // cta_top and the last CTA's merge
+    int ids[TILE];   // the tile's live ids, in compacted order
+    u64 keys[TILE];  // a ragged tile's keys, spread over the warps
+  };
+  int wtot[WARPS];   // live slots of each warp
+  int tile, excl;
+  unsigned int epoch;
+};
+
+template <int L>
+__global__ void __launch_bounds__(NT)
 compact_topb_kernel(const int* __restrict__ slot_req,
                     const uint8_t* __restrict__ alive,
                     const float* __restrict__ wait,
@@ -493,93 +603,192 @@ compact_topb_kernel(const int* __restrict__ slot_req,
                     const float* __restrict__ urg,
                     const float* __restrict__ route,
                     const float* __restrict__ weights, int w_total, int b,
-                    int has_route, int* out_req, int* out_n, int* out_idx,
+                    int has_route, u64* ws, unsigned int* ctr, u64* status,
+                    int* out_req, int* out_n, int* out_idx,
                     float* out_score) {
-  __shared__ u64 red[33];
-  __shared__ int warp_excl[32];
-  __shared__ int s_nlive;
-  __shared__ float w[5];
+  __shared__ CompactSmem<L> sm;
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  if (tid < 5) w[tid] = tid < (has_route ? 5 : 4) ? weights[tid] : 0.0f;
-
-  const int i0 = tid * CEPT;
-  bool a[CEPT];
-  int cnt = 0;
-#pragma unroll
-  for (int e = 0; e < CEPT; ++e) {
-    const int i = i0 + e;
-    a[e] = i < w_total && alive[i] != 0;
-    cnt += a[e] ? 1 : 0;
+  const bool multi = gridDim.x > 1;
+  // ctr: [0] done, [1] ticket, [2] epoch
+  int tile = 0;
+  uint32_t tag = 0u;
+  if (multi) {
+    if (tid == 0) {
+      sm.tile = static_cast<int>(atomicAdd(ctr + 1, 1u));
+      sm.epoch = *reinterpret_cast<volatile unsigned int*>(ctr + 2);
+    }
+    __syncthreads();
+    tile = sm.tile;
+    tag = sm.epoch & TAG_MASK;
   }
-  int incl = cnt;
+  float w[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+    w[j] = j < (has_route ? 5 : 4) ? __ldg(weights + j) : 0.0f;
+
+  // this thread's E consecutive slots
+  const int s0 = tile * TILE;
+  const int i0 = s0 + E * tid;
+  int req[E];
+  bool a[E];
+  float fw[E], fc[E], fu[E], fr[E];
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(slot_req) |
+        reinterpret_cast<uintptr_t>(wait) | reinterpret_cast<uintptr_t>(cost) |
+        reinterpret_cast<uintptr_t>(urg) |
+        reinterpret_cast<uintptr_t>(route)) & 15u) == 0u &&
+      (reinterpret_cast<uintptr_t>(alive) & 3u) == 0u;
+  if (vec && i0 + E <= w_total) {
+    const int4 r4 = __ldg(reinterpret_cast<const int4*>(slot_req + i0));
+    const uchar4 a4 = __ldg(reinterpret_cast<const uchar4*>(alive + i0));
+    const float4 w4 = __ldg(reinterpret_cast<const float4*>(wait + i0));
+    const float4 c4 = __ldg(reinterpret_cast<const float4*>(cost + i0));
+    const float4 u4 = __ldg(reinterpret_cast<const float4*>(urg + i0));
+    const float4 t4 = has_route
+                          ? __ldg(reinterpret_cast<const float4*>(route + i0))
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    req[0] = r4.x; req[1] = r4.y; req[2] = r4.z; req[3] = r4.w;
+    a[0] = a4.x != 0; a[1] = a4.y != 0; a[2] = a4.z != 0; a[3] = a4.w != 0;
+    fw[0] = w4.x; fw[1] = w4.y; fw[2] = w4.z; fw[3] = w4.w;
+    fc[0] = c4.x; fc[1] = c4.y; fc[2] = c4.z; fc[3] = c4.w;
+    fu[0] = u4.x; fu[1] = u4.y; fu[2] = u4.z; fu[3] = u4.w;
+    fr[0] = t4.x; fr[1] = t4.y; fr[2] = t4.z; fr[3] = t4.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = i0 + e;
+      const bool in = i < w_total;
+      req[e] = in ? __ldg(slot_req + i) : -1;
+      a[e] = in && __ldg(alive + i) != 0;
+      fw[e] = in ? __ldg(wait + i) : 0.0f;
+      fc[e] = in ? __ldg(cost + i) : 1.0f;
+      fu[e] = in ? __ldg(urg + i) : 0.0f;
+      fr[e] = in && has_route ? __ldg(route + i) : 0.0f;
+    }
+  }
+
+  // positions in the tile: four ballots a warp, then a scan of the 32
+  // warp totals that every warp repeats (one barrier)
+  const unsigned int below = (1u << lane) - 1u;
+  int before = 0, wcount = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const unsigned int m = __ballot_sync(0xffffffffu, a[e]);
+    before += __popc(m & below);
+    wcount += __popc(m);
+  }
+  if (lane == 0) sm.wtot[warp] = wcount;
+  __syncthreads();
+  const int v = sm.wtot[lane];
+  int incl = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int x = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += x;
   }
-  if (lane == 31) warp_excl[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int v = warp_excl[lane];
-    int vi = v;
+  const int cnt = __shfl_sync(0xffffffffu, incl, 31);
+  int pos[E];
+  pos[0] = __shfl_sync(0xffffffffu, incl - v, warp) + before;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int x = __shfl_up_sync(0xffffffffu, vi, o);
-      if (lane >= o) vi += x;
-    }
-    warp_excl[lane] = vi - v;
-    if (lane == 31) s_nlive = vi;
-  }
-  __syncthreads();
-  const int n_live = s_nlive;
+  for (int e = 1; e < E; ++e) pos[e] = pos[e - 1] + (a[e - 1] ? 1 : 0);
+  if (multi && tid == 0)
+    store_status(status + tile,
+                 status_word(tag, tile == 0 ? ST_INC : ST_AGG, cnt));
 
-  int pos[CEPT];
-  int p = warp_excl[warp] + incl - cnt;
+  u64 k[E];
 #pragma unroll
-  for (int e = 0; e < CEPT; ++e) {
-    pos[e] = p;
-    if (a[e]) {
-      out_req[p] = slot_req[i0 + e];
-      ++p;
+  for (int e = 0; e < E; ++e)
+    k[e] = a[e] ? make_key(sched_score(fw[e], fc[e], fu[e], fr[e], w,
+                                       has_route != 0),
+                           static_cast<uint32_t>(pos[e]))
+                : 0ull;
+  // cta_top's filter takes the L-th best of the 32 warps' best keys, so
+  // it needs keys in at least L warps.  A ragged tile's slots lie in its
+  // first warps only (4 consecutive a thread), and its filter would let
+  // too many keys through, so its keys are spread over the warps, slot
+  // e * NT + tid in thread tid, as top-b holds its lanes.
+  const int s1 = min(s0 + TILE, w_total);
+  if (s1 - s0 < TILE) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) sm.keys[E * tid + e] = k[e];
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < E; ++e) k[e] = sm.keys[e * NT + tid];
+    __syncthreads();
+  }
+  cta_top<L>(k, sm.top);
+
+  // live slots before the tile; keys to compacted positions
+  if (warp == 0) {
+    const int excl = multi && tile > 0 ? look_back(status, tile, tag) : 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (k[e] != 0ull) k[e] -= static_cast<u64>(excl);
+    if (lane == 0) {
+      if (multi && tile > 0)
+        store_status(status + tile, status_word(tag, ST_INC, excl + cnt));
+      sm.excl = excl;
     }
   }
+  __syncthreads();
+  const int excl = sm.excl;
+  const int incl_all = excl + cnt;
+
+  // -1 on this tile's lanes at or past its inclusive count; the live
+  // ids into shared memory in compacted order
+  for (int j = max(s0, incl_all) + tid; j < s1; j += NT) out_req[j] = -1;
 #pragma unroll
-  for (int e = 0; e < CEPT; ++e) {
-    const int j = i0 + e;
-    if (j < w_total && j >= n_live) out_req[j] = -1;
+  for (int e = 0; e < E; ++e)
+    if (a[e]) sm.ids[pos[e]] = req[e];
+  __syncthreads();
+  if (multi) {
+    if (tid == 0) {
+      __threadfence();
+      store_status(status + tile, status_word(tag, ST_TAIL, incl_all));
+      // the ids land on lanes of earlier tiles that they set to -1
+      if (cnt > 0) {
+        const int last_c = min(tile - 1, (incl_all - 1) / TILE);
+        for (int c = excl / TILE; c <= last_c; ++c)
+          wait_status(status, c, tag, ST_TAIL);
+      }
+      __threadfence();
+    }
+    __syncthreads();
+  }
+  for (int j = tid; j < cnt; j += NT) out_req[excl + j] = sm.ids[j];
+
+  int n_live = cnt;
+  if (multi) {
+    if (warp == 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (wpos(e) < L) ws[tile * L + wpos(e)] = k[e];
+      __threadfence();
+    }
+    if (!last_to_arrive(ctr)) return;
+    merge_lists<L>(k, sm.top, ws, static_cast<int>(gridDim.x));
+    n_live = static_cast<int>(static_cast<uint32_t>(
+        load_status(status + gridDim.x - 1)));
+    if (tid == 0) {  // ready for the next call (or a graph replay)
+      ctr[0] = 0u;
+      ctr[1] = 0u;
+      ctr[2] = sm.epoch + 1u;
+    }
   }
   if (tid == 0) *out_n = n_live;
-
-  u64 k[CEPT];
+  if (warp == 0) {
+    merge_with<L>(k, [n_live, w_total](int q) {
+      const int j = n_live + q;
+      return j < w_total ? make_key(NEG, static_cast<uint32_t>(j)) : 0ull;
+    });
 #pragma unroll
-  for (int e = 0; e < CEPT; ++e) {
-    const int i = i0 + e;
-    k[e] = a[e] ? make_key(sched_score(wait[i], cost[i], urg[i],
-                                       has_route ? route[i] : 0.0f, w,
-                                       has_route != 0),
-                           static_cast<uint32_t>(i))
-                : 0ull;
-  }
-  for (int r = 0; r < b; ++r) {
-    if (r >= n_live) {  // uniform across the block: n_live is shared
-      if (tid == 0) {
-        out_idx[r] = r;
-        out_score[r] = NEG;
-      }
-      continue;
-    }
-    u64 m = 0ull;
-#pragma unroll
-    for (int e = 0; e < CEPT; ++e) m = umax(m, k[e]);
-    const u64 best = block_max<CTPB>(m, red);
-#pragma unroll
-    for (int e = 0; e < CEPT; ++e) {
-      if (k[e] == best) {
-        k[e] = 0ull;
-        out_idx[r] = pos[e];
-        out_score[r] = key_score(best);
+    for (int e = 0; e < E; ++e) {
+      const int p = wpos(e);
+      if (p < b) {
+        out_idx[p] = key_index(k[e]);
+        out_score[p] = key_score(k[e]);
       }
     }
   }
@@ -636,16 +845,31 @@ int sched_score_argmax(const float* wait, const float* cost, const float* urg,
                      out_idx, out_score, stream);
 }
 
+// ws as for sched_score_topb; ctr: done, ticket and epoch, the first two
+// 0 before the call and left 0 after it (a done counter of its own, not
+// sched_score_topb's); status: ceil(w / 4096) status words, zeroed when
+// made and never again.
 int sched_compact_topb(const int* slot_req, const uint8_t* alive,
                        const float* wait, const float* cost, const float* urg,
                        const float* route, const float* weights, int w_total,
-                       int b, int* out_req, int* out_n, int* out_idx,
+                       int b, u64* ws, unsigned int* ctr, u64* status,
+                       int* out_req, int* out_n, int* out_idx,
                        float* out_score, cudaStream_t stream) {
-  if (w_total < 1 || w_total > WMAX || b < 1 || b > BMAX || b > w_total)
+  if (w_total < 1 || b < 1 || b > BMAX || b > w_total)
     return static_cast<int>(cudaErrorInvalidValue);
-  compact_topb_kernel<<<1, CTPB, 0, stream>>>(
-      slot_req, alive, wait, cost, urg, route, weights, w_total, b,
-      route != nullptr ? 1 : 0, out_req, out_n, out_idx, out_score);
+  const int nb = (w_total + TILE - 1) / TILE;
+  const auto kernel = b <= 1    ? compact_topb_kernel<1>
+                      : b <= 2  ? compact_topb_kernel<2>
+                      : b <= 4  ? compact_topb_kernel<4>
+                      : b <= 8  ? compact_topb_kernel<8>
+                      : b <= 16 ? compact_topb_kernel<16>
+                      : b <= 32 ? compact_topb_kernel<32>
+                      : b <= 64 ? compact_topb_kernel<64>
+                                : compact_topb_kernel<128>;
+  kernel<<<nb, NT, 0, stream>>>(slot_req, alive, wait, cost, urg, route,
+                                weights, w_total, b, route != nullptr ? 1 : 0,
+                                ws, ctr, status, out_req, out_n, out_idx,
+                                out_score);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -290,9 +290,29 @@ def pool(w, seed, density=0.7, route=False):
     return req, alive, wait, cost, urg, r
 
 
-def check_compact(w, b, seed=0, density=0.7, route=False, p=None):
+# pools past one CTA's tile of 4096 slots: at its edge, ragged, two
+# whole tiles, and three tiles and one slot
+PAST_TILE = (4097, 5000, 8192, 12_289)
+W_BELOW = np.asarray([1.0, 1.0, 1.0, 100.0], np.float32)
+
+
+def below_neg_pool(w):
+    """Slots 0, 2, w/2 and w-1 dead (the sentinel lanes are the last
+    four); live slots score -3e30, except slot 1 (an ordinary score),
+    slot w/2 + 1 (one that rounds to NEG exactly) and slot w - 2 (-inf),
+    with weights W_BELOW."""
+    alive = np.ones(w, bool)
+    alive[[0, 2, w // 2, w - 1]] = False
+    urg = np.full(w, -3e30, np.float32)
+    urg[[1, w // 2 + 1, w - 2]] = [0.0, -1e30, -np.inf]
+    ones = np.ones(w, np.float32)
+    return np.arange(w, dtype=np.int32), alive, ones, ones, urg, None
+
+
+def check_compact(w, b, seed=0, density=0.7, route=False, p=None,
+                  weights=None):
     req, alive, wait, cost, urg, r = p or pool(w, seed, density, route)
-    wt = W5 if route else W4
+    wt = (W5 if route else W4) if weights is None else weights
     cp, np_, ip, sp = ops.sched_compact_topb(
         t(req), t(alive), t(wait), t(cost), t(urg), t(wt), b, t(r))
     cr, nr, ir, sr = sched_compact_topb_ref(
@@ -307,6 +327,22 @@ def check_compact(w, b, seed=0, density=0.7, route=False, p=None):
     slot_of = np.append(np.flatnonzero(alive), 0)
     ranked = slot_of[np.where(live, np.asarray(ir), -1)]
     assert_scores(sp.numpy(), sr, route_term(r, ranked, live))
+
+
+def check_compact_split(p, b, tile, weights=W4):
+    req, alive, wait, cost, urg, _ = p
+    tp = [t(a) for a in (req, alive, wait, cost, urg)]
+    got = port_ref.sched_compact_topb_split_ref(*tp, t(weights), b,
+                                                tile=tile)
+    plain = port_ref.sched_compact_topb_ref(*tp, t(weights), b)
+    oracle = sched_compact_topb_ref(*[jnp.asarray(a) for a in
+                                      (req, alive, wait, cost, urg, weights)],
+                                    b)
+    for x, y, z in zip(got, plain, oracle):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(x.numpy().view(np.int32),
+                                      y.numpy().view(np.int32))
+        np.testing.assert_array_equal(x.numpy(), np.asarray(z))
 
 
 class TestCompactTopB:
@@ -334,6 +370,60 @@ class TestCompactTopB:
 
     def test_fully_live_pool(self):
         check_compact(256, 16, seed=7, density=1.0)
+
+    @pytest.mark.parametrize("w", PAST_TILE)
+    @pytest.mark.parametrize("b", [1, 16, 128])
+    def test_pools_past_one_tile(self, w, b):
+        check_compact(w, b, seed=w % 101 + b, density=0.6)
+
+    def test_live_score_below_neg(self):
+        """Slots 1 and 5 alive, urgency[5] = -3e30: the oracle ranks the
+        compacted pool, whose NEG tail lanes come before a live -3e30."""
+        w = 8
+        alive = np.zeros(w, bool)
+        alive[[1, 5]] = True
+        urg = np.zeros(w, np.float32)
+        urg[5] = -3e30
+        ones = np.ones(w, np.float32)
+        p = (np.arange(w, dtype=np.int32), alive, ones, ones, urg, None)
+        check_compact(w, 4, p=p, weights=W_BELOW)
+        _, _, ip, sp = ops.sched_compact_topb(*map(t, p[:5]), t(W_BELOW), 4)
+        np.testing.assert_array_equal(ip.numpy(), [0, 2, 3, 4])
+        assert np.all(sp.numpy()[1:] == np.float32(port_ref.NEG))
+
+    @pytest.mark.parametrize("w", [8, 2 * TILE + 8])
+    @pytest.mark.parametrize("b", [4, 8])
+    def test_scores_at_below_neg_and_minus_inf(self, w, b):
+        """A live score equal to NEG ranks before the sentinel lanes (its
+        index is lower); -3e30 and -inf rank after them, at W = 8 and past
+        a tile."""
+        p = below_neg_pool(w)
+        check_compact(w, b, p=p, weights=W_BELOW)
+        _, _, ip, _ = ops.sched_compact_topb(*map(t, p[:5]), t(W_BELOW), b)
+        half = w // 2 - 2   # compacted position of slot w/2 + 1
+        want = [0, half, w - 4, w - 3, w - 2, w - 1, 1, 2 if w > 8 else 3]
+        np.testing.assert_array_equal(ip.numpy(), want[:b])
+
+
+class TestCompactTilePartition:
+    """`sched_compact_topb_split_ref`, the emulation of the kernel's
+    partition, equal bit for bit to the plain version and exactly to the
+    oracle (ids, n_live, idx and, without the route term, scores)."""
+
+    @pytest.mark.parametrize("w", PAST_TILE)
+    @pytest.mark.parametrize("b", [1, 16, 128])
+    @pytest.mark.parametrize("tile", [64, TILE])
+    def test_split_equals_plain(self, w, b, tile):
+        check_compact_split(pool(w, seed=w % 89 + b, density=0.6), b, tile)
+
+    @pytest.mark.parametrize("w", [8, 2 * TILE + 8])
+    @pytest.mark.parametrize("tile", [4, 64, TILE])
+    def test_split_below_neg(self, w, tile):
+        check_compact_split(below_neg_pool(w), 8, tile, weights=W_BELOW)
+
+    @pytest.mark.parametrize("density", [0.0, 1.0])
+    def test_split_empty_and_full(self, density):
+        check_compact_split(pool(5000, seed=3, density=density), 16, 64)
 
 
 class TestWrapperDispatch:
@@ -365,8 +455,11 @@ class TestWrapperDispatch:
         with pytest.raises(ValueError):
             ops.sched_score_topb(*meta, 4)
 
-    def test_compact_rejects_pools_over_one_cta(self):
-        req, alive, wait, cost, urg, _ = pool(4100, seed=0)
+    def test_compact_accepts_pools_over_one_tile(self):
+        check_compact(4100, 16, seed=0)
+
+    def test_compact_rejects_b_over_128(self):
+        req, alive, wait, cost, urg, _ = pool(300, seed=0)
         with pytest.raises(ValueError):
             ops.sched_compact_topb(t(req), t(alive), t(wait), t(cost), t(urg),
-                                   t(W4), 16)
+                                   t(W4), 129)

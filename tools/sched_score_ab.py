@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Before and after of `sched_score.cu`'s top-b and argmax on one CUDA card.
+"""Before and after of `sched_score.cu`'s three kernels on one CUDA card.
 
     mkdir -p build/sched_ab && git show \\
         <rev>:src/repro_torch/kernels/sched_score/sched_score.cu \\
@@ -12,30 +12,39 @@ CUDA toolkit.  It builds the checkout's `sched_score.cu` as the port
 does (`src/repro_torch/kernels/_build.py`) and each `--old` source (the
 flag repeats; a build is named by its file's stem) with the same flags
 into the checkout's git-ignored `build/sched_ab/`.  All export the same
-C entry points; a build whose `sched_score_tile()` is 2048 is the
-earlier two-pass body and gets the two scratch buffers it was called
-with, any other build its own (keys, done) workspace, as `ops.py`
-makes it.  At every case of `chip_smoke.py`'s `sched_cases` every build
+C entry points.  A build whose `sched_score_tile()` is 2048 is the
+earlier two-pass top-b body and gets the two scratch buffers it was
+called with; any other build its own (keys, counters, status)
+workspace, as `ops.py` makes it.  A build whose source still caps the
+slot pool (`WMAX`) is the one-CTA compaction body: it is called with
+its own signature and only at pools of 4096 slots or fewer.  At every
+case of `chip_smoke.py`'s `sched_cases` and `compact_cases` every build
 is held bit for bit against the plain version (outputs are filled with
-a sentinel first, so an output left unwritten shows), and a second
-identical call at each multi-CTA size must repeat the first; every case
-runs, and the script fails at the end if any build differed.
-`--mutants` writes three copies of the checkout's source with one
-deliberate fault each under `build/sched_mut/` and adds them
-(`MUTANTS`: the done counter never set back to 0, a cross-CTA merge
-that ranks the higher index first on a tie, CTA lists that keep b - 1
-keys); the tool then exits non-zero and lists where each was caught.
-At the paper cell's n = 256 (top-b, b = 4) and at n = 4096 and
-100,000 (top-b with b = 16, and argmax) the builds and the library call
-(`torch.topk` / `torch.argmax` over precomputed scores, as
-`chip_smoke.py` times them) are timed in turns, new, the others, the
-others reversed, new, by CUDA events, median of 60 calls each
-(`chip_smoke.device_ms`); a build's time is the mean of its two
-medians.  `--ptxas` first prints what `ptxas -v` reports for every
-build (registers, spills, shared memory).  `--profile` adds, at n =
-256, 4096 and 100,000, each build's kernels a call and their device
-µs from `torch.profiler` over 20 calls.  It prints the card's name and
-power limit, then one JSON line per timed case.
+a sentinel first, so an output left unwritten shows, and compaction's
+lanes past its ids must keep it), and a second identical call at each
+multi-CTA size must repeat the first; every case runs, and the script
+fails at the end if any build differed.  `--mutants` writes copies of
+the checkout's source with one deliberate fault each under
+`build/sched_mut/` and adds them (`MUTANTS`: top-b's done counter
+never set back to 0, a cross-CTA merge that ranks the higher index
+first on a tie, CTA lists that keep b - 1 keys; compaction's look-back
+prefix one too high past the first tile, ties within a tile to the
+higher position, no sentinel keys); the tool then exits non-zero and
+lists where each was caught.  At the paper cell's n = 256 (top-b, b =
+4) and at n = 4096 and 100,000 (top-b with b = 16, and argmax) the
+builds and the library call (`torch.topk` / `torch.argmax` over
+precomputed scores, as `chip_smoke.py` times them) are timed in turns,
+new, the others, the others reversed, new, by CUDA events, median of 60
+calls each (`chip_smoke.device_ms`); a build's time is the mean of its
+two medians.  Compaction is timed the same way at W = 4096 and 100,000
+(b = 16, density 0.6) beside `unfused`, the plain compaction and then
+the checkout's top-b kernel over the compacted pool; its rows carry
+`chip_smoke.compact_bound`.  `--ptxas` first prints what `ptxas -v`
+reports for every build (registers, spills, shared memory).
+`--profile` adds, at n = 256, 4096 and 100,000, each build's kernels a
+call and their device µs from `torch.profiler` over 20 calls (top-b
+and argmax; compaction at 4096 and 100,000).  It prints the card's name
+and power limit, then one JSON line per timed case.
 """
 from __future__ import annotations
 
@@ -47,8 +56,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "build" / "sched_ab"
 MUT_DIR = ROOT / "build" / "sched_mut"
-ENTRIES = ("sched_score_topb", "sched_score_argmax", "sched_score_tile")
+ENTRIES = ("sched_score_topb", "sched_score_argmax", "sched_compact_topb",
+           "sched_score_tile")
 PARENT_TILE = 2048   # the two-pass body's lanes a block
+ONE_CTA_MARK = "constexpr int WMAX"   # the one-CTA compaction body's cap
 # copies of the checkout's source with one deliberate fault each, as
 # (text, replacement) edits
 MUTANTS = {
@@ -66,16 +77,36 @@ MUTANTS = {
          "    if (threadIdx.x == 0) *done = 0u;"),
         (": __ldcg(ws + (next + q - carry) * L + p);",
          ": __ldcg(ws + (next + q - carry) * L + p) ^ 0xFFFFFFFFull;"),
-        ("        __syncthreads();\n      }\n    }\n"
-         "    if (threadIdx.x == 0) *done = 0u;",
-         "        __syncthreads();\n      }\n    }\n"
-         "    for (int e = 0; e < E; ++e) k[e] ^= 0xFFFFFFFFull;\n"
-         "    if (threadIdx.x == 0) *done = 0u;")],
+        ("      __syncthreads();\n    }\n  }\n}\n",
+         "      __syncthreads();\n    }\n  }\n"
+         "  for (int e = 0; e < E; ++e) k[e] ^= 0xFFFFFFFFull;\n}\n")],
     # each CTA hands the last one only its best b - 1 keys
     "keep_b_minus_1": [
         ("if (wpos(e) < L) ws[blockIdx.x * L + wpos(e)] = k[e];",
          "if (wpos(e) < L) ws[blockIdx.x * L + wpos(e)] = "
          "wpos(e) < b - 1 ? k[e] : 0ull;")],
+    # compaction: the look-back's prefix one too high, so every tile past
+    # the first puts its ids and ranks one lane late (the ids of the last
+    # tiles run past w, into the guard lanes)
+    "lookback_plus_one": [
+        ("    if (inc != 0u) return excl;",
+         "    if (inc != 0u) return excl + 1;")],
+    # compaction: keys made with the index half flipped and flipped back
+    # after the CTA's selection, so equal scores in a tile rank the
+    # higher position first
+    "compact_tie_high": [
+        ("static_cast<uint32_t>(pos[e]))\n                : 0ull;",
+         "static_cast<uint32_t>(pos[e])) ^ 0xFFFFFFFFull\n"
+         "                : 0ull;"),
+        ("if (k[e] != 0ull) k[e] -= static_cast<u64>(excl);",
+         "if (k[e] != 0ull) k[e] = (k[e] ^ 0xFFFFFFFFull) - "
+         "static_cast<u64>(excl);")],
+    # compaction: no sentinel keys in the final selection (ranks past the
+    # live slots come out empty; a live score below NEG ranks before the
+    # NEG lanes)
+    "no_sentinels": [
+        ("return j < w_total ? make_key(NEG, static_cast<uint32_t>(j)) : "
+         "0ull;", "return 0ull;")],
 }
 TIMED = ((256, 4), (4096, 16), (100_000, 16), (4096, None), (100_000, None))
 
@@ -95,12 +126,31 @@ def write_mutants(src):
     return paths
 
 
-def caller(torch, lib, ops, _build):
-    """Calls of `lib` as its wrapper makes them: `call(b, features,
-    fill)`, b None for argmax; `fill` sets the outputs to a sentinel
-    first."""
-    tile = lib.sched_score_tile()
+def workspace(torch, ops):
+    """A (keys, counters, status) workspace of one build, made and grown
+    as `ops._workspace` makes it: `get(n)` for a call over n lanes."""
     ws = {}
+
+    def get(n):
+        tiles = -(-n // ops.TILE)
+        if "counters" not in ws:
+            ws["counters"] = torch.zeros((4,), dtype=torch.int32,
+                                         device="cuda")
+        if "keys" not in ws or ws["keys"].numel() < tiles * ops.BMAX:
+            ws["keys"] = torch.empty((tiles * ops.BMAX,), dtype=torch.int64,
+                                     device="cuda")
+        if "status" not in ws or ws["status"].numel() < tiles:
+            ws["status"] = torch.zeros((tiles,), dtype=torch.int64,
+                                       device="cuda")
+        return ws["keys"], ws["counters"], ws["status"]
+    return get
+
+
+def caller(torch, lib, ops, _build, get):
+    """Calls of `lib`'s top-b and argmax as their wrappers make them:
+    `call(b, features, fill)`, b None for argmax; `fill` sets the
+    outputs to a sentinel first.  `get` is the build's workspace."""
+    tile = lib.sched_score_tile()
 
     def scratch(n, b):
         if tile == PARENT_TILE:  # the two-pass body's two key buffers
@@ -108,13 +158,7 @@ def caller(torch, lib, ops, _build):
             return (torch.empty((a,), dtype=torch.int64, device="cuda"),
                     torch.empty((max(1, -(-a // tile) * b),),
                                 dtype=torch.int64, device="cuda"))
-        need = -(-n // tile) * ops.BMAX
-        if "done" not in ws:
-            ws["done"] = torch.zeros((1,), dtype=torch.int32, device="cuda")
-        if "keys" not in ws or ws["keys"].numel() < need:
-            ws["keys"] = torch.empty((need,), dtype=torch.int64,
-                                     device="cuda")
-        return ws["keys"], ws["done"]
+        return get(n)[:2]
 
     def call(b, f, fill=True):
         wait, cost, urg, mask, w, r = f
@@ -197,37 +241,83 @@ def main() -> None:
         report("new", nvcc(_build, _build.SOURCES["sched_score"],
                            OUT_DIR / "libptxas.so", extra=verbose))
     libs = {"new": ops._lib()}
+    one_cta = {"new": False}
     if args.mutants:
         args.old += write_mutants(_build.SOURCES["sched_score"])
     for src in args.old:
         so = OUT_DIR / f"libsched_score-{src.stem}.so"
         report(src.stem, nvcc(_build, src, so, extra=verbose))
         libs[src.stem] = bind_like(so, libs["new"], ENTRIES)
-    calls = {name: caller(torch, lib, ops, _build)
+        one_cta[src.stem] = ONE_CTA_MARK in src.read_text()
+        if one_cta[src.stem]:  # (..., w, b, outputs, stream)
+            fn = libs[src.stem].sched_compact_topb
+            fn.argtypes = fn.argtypes[:9] + fn.argtypes[12:]
+    gets = {name: workspace(torch, ops) for name in libs}
+    calls = {name: caller(torch, lib, ops, _build, gets[name])
              for name, lib in libs.items()}
 
+    def compact(build, pool, b, fill=True):
+        """The build's compaction; False for the guard if a lane past
+        the ids was written."""
+        def ws(n):   # compaction's own counters, as ops passes them
+            keys, counters, status = gets[build](n)
+            return keys, counters[1:], status
+        return cs.compact_call(torch, libs[build], pool, b,
+                               None if one_cta[build] else ws, fill=fill)
+
+    # every check of one build before the next build's, its line printed
+    # as soon as it is done
+    sched = cs.sched_cases(torch, dev)
+    compact_cases = cs.compact_cases(torch, dev)
+    gen = torch.Generator().manual_seed(4321)
+    repeats = [(n, cs.sched_feats(torch, gen, dev, n, 0.5),
+                cs.compact_pool(torch, gen, dev, n, 0.5))
+               for n in cs.SCHED_EDGES[2:] + (100_000,)]
+    sched_wants = [cs.sched_want(ref, name, b, f)
+                   for name, _, b, f in sched]
+    compact_wants = [ref.sched_compact_topb_ref(*pool[:6], b, pool[6])
+                     for _, b, pool in compact_cases]
     failed = {}
-    for name, label, b, f in cs.sched_cases(torch, dev):
-        want = cs.sched_want(ref, name, b, f)
-        for build, call in calls.items():
+    for build, call in calls.items():
+        bad = failed.setdefault(build, [])
+        for (name, label, b, f), want in zip(sched, sched_wants):
             got = call(b, f)
             if not all(cs.same_bits(torch, x, y) for x, y in zip(got, want)):
-                failed.setdefault(build, []).append(f"{name} {label}")
-    gen = torch.Generator().manual_seed(4321)
-    for n in cs.SCHED_EDGES[2:] + (100_000,):
-        f = cs.sched_feats(torch, gen, dev, n, 0.5)
-        for b in (16, None):
-            for build, call in calls.items():
-                first, second = call(b, f), call(b, f)
+                bad.append(f"{name} {label}")
+        for (label, b, pool), want in zip(compact_cases, compact_wants):
+            if one_cta[build] and pool[0].shape[0] > ops.TILE:
+                continue
+            try:
+                got, guard = compact(build, pool, b)
+            except RuntimeError:
+                print(f"{build}: sched_compact_topb {label} failed to run",
+                      flush=True)
+                raise
+            if not (guard and all(cs.same_bits(torch, x, y)
+                                  for x, y in zip(got, want))):
+                bad.append(f"sched_compact_topb {label}"
+                           + ("" if guard else " (wrote past w)"))
+        for n, f, pool in repeats:
+            for b in (16, None, "compact"):
+                if b == "compact":
+                    if one_cta[build]:
+                        continue
+                    first, second = (compact(build, pool, 16)[0]
+                                     for _ in range(2))
+                else:
+                    first, second = call(b, f), call(b, f)
                 if not all(cs.same_bits(torch, x, y)
                            for x, y in zip(first, second)):
-                    failed.setdefault(build, []).append(
-                        f"repeat n={n} b={b}")
-    torch.cuda.synchronize()
-    for build in calls:
-        print(json.dumps(dict(build=build, cases_failed=len(
-            failed.get(build, [])), first=failed.get(build, [])[:6])),
-            flush=True)
+                    bad.append(f"repeat n={n} b={b}")
+        torch.cuda.synchronize()
+        by_kernel = {}
+        for case in bad:
+            key = case.split()[0]
+            by_kernel[key] = by_kernel.get(key, 0) + 1
+        print(json.dumps(dict(build=build, cases_failed=len(bad),
+                              by_kernel=by_kernel, first=bad[:6])),
+              flush=True)
+    failed = {k: v for k, v in failed.items() if v}
 
     names = [*libs, "library"]
     order = names + names[:0:-1] + names[:1]
@@ -239,14 +329,22 @@ def main() -> None:
                for build, call in calls.items()}
         fns["library"] = ((lambda: torch.argmax(scores)) if b is None
                           else (lambda: torch.topk(scores, b)))
-        ms = {}
-        for build in order:
-            ms.setdefault(build, []).append(cs.device_ms(torch, fns[build]))
-        t = {k: sum(v) / len(v) for k, v in ms.items()}
-        row = dict(kernel="sched_score_argmax" if b is None
-                   else "sched_score_topb", n=n, b=b, ms=t, ms_each=ms,
-                   over_new={k: t[k] / t["new"] for k in t if k != "new"})
-        print(json.dumps(row), flush=True)
+        print(json.dumps(timed(cs, torch, fns, order, kernel=(
+            "sched_score_argmax" if b is None else "sched_score_topb"),
+            n=n, b=b)), flush=True)
+    for n in cs.COMPACT_TIMED:
+        pool = cs.compact_pool(torch, gen, dev, n, 0.6)
+        fns = {build: (lambda build=build: compact(build, pool, 16,
+                                                   fill=False))
+               for build in libs if not (one_cta[build] and n > ops.TILE)}
+        fns["unfused"] = lambda: cs.unfused_compact_topb(torch, ops, ref,
+                                                         pool, 16)
+        names = list(fns)
+        t_b, by = cs.compact_bound(n, 16)
+        print(json.dumps(timed(
+            cs, torch, fns, names + names[:0:-1] + names[:1],
+            kernel="sched_compact_topb", n=n, b=16, density=0.6,
+            bound_ms=t_b, bound_by=by)), flush=True)
     if args.profile:
         for n in cs.SCHED_PROFILED:
             f = cs.sched_feats(torch, gen, dev, n, 0.5)
@@ -256,9 +354,28 @@ def main() -> None:
                         b, f, fill=False))
                     for build, call in calls.items()})
                 print(json.dumps(row), flush=True)
+        for n in cs.COMPACT_TIMED:
+            pool = cs.compact_pool(torch, gen, dev, n, 0.6)
+            row = dict(kernel="sched_compact_topb", n=n, b=16, kernels={
+                build: kernel_us(torch, lambda build=build: compact(
+                    build, pool, 16, fill=False))
+                for build in libs if not (one_cta[build] and n > ops.TILE)})
+            print(json.dumps(row), flush=True)
     cs.check(not failed, "differs from the plain version: " + "; ".join(
         f"{build}: {len(v)} cases, first {v[0]}"
         for build, v in failed.items()))
+
+
+def timed(cs, torch, fns, order, **row):
+    """`row` with each function's device ms timed in `order` (each name
+    twice): the mean of its two medians, both medians, and each time over
+    the checkout's build's."""
+    ms = {}
+    for name in order:
+        ms.setdefault(name, []).append(cs.device_ms(torch, fns[name]))
+    t = {k: sum(v) / len(v) for k, v in ms.items()}
+    return dict(row, ms=t, ms_each=ms,
+                over_new={k: t[k] / t["new"] for k in t if k != "new"})
 
 
 if __name__ == "__main__":
