@@ -12,7 +12,10 @@ simulator, whose ordering layer ranks every class through
 models: the dense StableLM-2-1.6B, whose prefill runs `flash_attention`
 and whose every decode step runs `decode_attention`; the state-space
 Mamba2-780M, whose prefill runs `ssd_intra` in every layer; and the
-hybrid Hymba-1.5B, which runs all three.  Each path is driven with every
+hybrid Hymba-1.5B, which runs all three.  The scheduler also runs the
+paper tables' policy variants and the nonstationary provider
+(brownouts, token buckets, phased arrivals), card against CPU and at
+the scale run's size.  Each path is driven with every
 kernel's launch count set to 0 just before it and read just after; the
 kernels line carries each kernel's launches summed over the paths.
 Each phase prints one JSON line; any failure raises and the script
@@ -43,13 +46,36 @@ Phases:
      it);
   4. paper cell: `run_cell` on the card and on the CPU with the same
      inputs — equal decision traces, equal terminal statuses, metrics
-     within the tests' tolerance;
+     within the tests' tolerance (`CELL_TOL`);
   5. scale: the windowed run at N = 100,000, W = 4096, B = 16 on the
      card — `sched_score_topb` launched (K+1) times a tick, every request
      accounted for on every tick and after the drain, `sched_compact_topb`
      held against its plain version on the run's own slot pool at
      mid-run, and a window of ticks traced with `torch.profiler` for the
      device's busy time and idle share;
+ 5a. tables: the paper tables' policy variants, each on the card and on
+     the CPU with the same inputs (N = 160, W = 256, B = 4, seed 0, 1,000
+     ticks): `with_information(final_adrr_olc, "no_info")` with no_info
+     priors, `with_bucket_policy(final_adrr_olc, "reverse")` on
+     heavy/high, `per_bucket_policy()` with the bucket4 lanes,
+     `multi_tenant_policy(4)` with tenant4, and `final_adrr_olc` against
+     `physics_for_arch(ms_per_token=13.0)` — equal decision traces,
+     severity bits, statuses and throttle counts, metrics within the
+     paper cell's tolerance, (K+1) `sched_score_topb` launches a tick;
+ 5b. scenarios: `storm` (phased arrivals, a brownout, a token bucket)
+     and `rate_crunch` (a refill that collapses mid-run) through
+     `run_scenario_cell` on the card and on the CPU (N = 160 at 4x the
+     rate, W = 256, B = 4, seed 0, the arrival span plus 800 ticks of
+     drain) — equal decisions, severity bits, statuses and bounces (at
+     least one), equal phase metrics (NaN as NaN), per-phase
+     completions and sheds printed;
+ 5c. scenario_scale: `storm` at the scale run's size (N = 100,000, W =
+     4096, B = 16, K = 2, 2,000 ticks, the population offered over the
+     N = 160 span) on the card: every request terminal after the drain,
+     bounces counted, every real admit's service equal to the physics
+     at the inflight count it saw and the tick's comfort scale, slower
+     inside the brownout at equal inflight, the phase counts, and a
+     window of ticks inside the brownout traced for the idle share;
   6. attention_kernels: `flash_attention` and `decode_attention` against
      their plain versions on the card at StableLM-2-1.6B's geometry
      (H = KV = 32, hd = 64, bf16; flash also at B = 4 and with fewer
@@ -160,22 +186,38 @@ def main() -> None:
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
 
-    kernels = phase_kernels(torch, dev)
-    ssd_per_call = ssd_kernels_per_call(torch, dev)
-    cell_launches = phase_paper_cell(torch, dev)
-    scale = phase_scale(torch, dev, kernels)
-    kernels.update(phase_attention_kernels(torch, dev))
-    served = phase_serve(torch, dev, kernels)
-    kernels.update(phase_ssd_kernel(torch, dev, ssd_per_call))
-    served_ssm = phase_serve_ssm(torch, dev, kernels)
-    served_hybrid = phase_serve_hybrid(torch, dev, kernels)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, dev, *args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    kernels = timed("kernels", phase_kernels)
+    ssd_per_call = timed("ssd_kernels_per_call", ssd_kernels_per_call)
+    cell_launches = timed("paper_cell", phase_paper_cell)
+    scale = timed("scale", phase_scale, kernels)
+    tables = timed("tables", phase_tables)
+    scenarios = timed("scenarios", phase_scenarios)
+    scenario_scale = timed("scenario_scale", phase_scenario_scale)
+    # the scheduler's main-path launches: the scale run and these three
+    kernels["sched_score_topb"]["launches"] += (tables + scenarios
+                                                + scenario_scale)
+    kernels.update(timed("attention_kernels", phase_attention_kernels))
+    served = timed("serve", phase_serve, kernels)
+    kernels.update(timed("ssd_kernel", phase_ssd_kernel, ssd_per_call))
+    served_ssm = timed("serve_ssm", phase_serve_ssm, kernels)
+    served_hybrid = timed("serve_hybrid", phase_serve_hybrid, kernels)
+    emit(phase="seconds", **seconds)
 
     print(smi, flush=True)
     emit(kernels=[kernels[k] for k in
                   ("sched_score_topb", "sched_score_argmax",
                    "sched_compact_topb", "flash_attention",
                    "decode_attention", "ssd_intra")])
-    check(cell_launches > 0 and scale > 0 and served > 0 and served_ssm > 0
+    check(cell_launches > 0 and scale > 0 and tables > 0 and scenarios > 0
+          and scenario_scale > 0 and served > 0 and served_ssm > 0
           and served_hybrid > 0, "main path launched no kernel")
     emit(ok=True, device={"platform": "gpu", "kind": kind,
                           "count": torch.cuda.device_count()})
@@ -597,43 +639,69 @@ def unfused_compact_topb(torch, ops, ref, pool, b):
 # 4. the paper cell, card against CPU
 # ---------------------------------------------------------------------------
 
-def phase_paper_cell(torch, dev):
-    from repro_torch.core.policy import strategy
-    from repro_torch.kernels.sched_score import ops
-    from repro_torch.sim import SimConfig, WorkloadConfig, run_cell
+CELL_TOL = dict(rtol=1e-5, atol=1e-6)   # metrics, card against CPU
 
-    wl = WorkloadConfig(n_requests=160, mix="balanced", congestion="high")
-    cfg = SimConfig(n_ticks=14000, k_slots=4, window=256)
+
+def card_and_cpu(torch, run):
+    """`run(device)` on the card, then on the CPU: each result with its
+    seconds and, for the card, the `sched_score_topb` launches (counted
+    from 0 just before the run)."""
+    from repro_torch.kernels.sched_score import ops
+
     res = {}
     for d in ("cuda", "cpu"):
         ops.reset_launches()
         t0 = time.perf_counter()
+        out = run(d)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        res[d] = (out, time.perf_counter() - t0,
+                  ops.LAUNCHES["sched_score_topb"])
+    return res["cuda"], res["cpu"]
+
+
+def same_run(torch, what, card, cpu):
+    """Card against CPU: equal decision traces (actions and request ids),
+    severity traces equal in bits, equal terminal statuses and throttle
+    counts, metrics within `CELL_TOL`."""
+    (mg, (fg, tg)), (mc, (fc, tc)) = card, cpu
+    tg = [x.cpu() for x in tg]
+    check(torch.equal(tg[0], tc[0]) and torch.equal(tg[1], tc[1]),
+          f"{what}: decision traces differ between card and CPU")
+    check(torch.equal(tg[2].view(torch.int32), tc[2].view(torch.int32)),
+          f"{what}: severity traces differ between card and CPU")
+    check(torch.equal(fg.req.status.cpu(), fc.req.status),
+          f"{what}: terminal statuses differ")
+    check(torch.equal(fg.req.n_throttles.cpu(), fc.req.n_throttles)
+          and int(fg.provider.n_throttled) == int(fc.provider.n_throttled),
+          f"{what}: throttle counts differ")
+    for f in mg._fields:
+        a = getattr(mg, f).cpu().double().numpy()
+        b = getattr(mc, f).double().numpy()
+        check(np.allclose(a, b, equal_nan=True, **CELL_TOL),
+              f"{what}: metric {f} {a} vs {b}")
+
+
+def phase_paper_cell(torch, dev):
+    from repro_torch.core.policy import strategy
+    from repro_torch.sim import SimConfig, WorkloadConfig, run_cell
+
+    wl = WorkloadConfig(n_requests=160, mix="balanced", congestion="high")
+    cfg = SimConfig(n_ticks=14000, k_slots=4, window=256)
+
+    def run(d):
         metrics, runs = run_cell(strategy("final_adrr_olc"), wl, seeds=1,
                                  sim_cfg=cfg, device=d,
                                  collect_decisions=True)
-        if d == "cuda":
-            torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = ops.LAUNCHES["sched_score_topb"]
-        final, trace = runs[0]
-        res[d] = (metrics, final.req.status.cpu(),
-                  [x.cpu() for x in trace], secs, launches)
-    (mg, sg, tg, secs_g, launches), (mc, sc, tc, secs_c, _) = (
-        res["cuda"], res["cpu"])
+        return metrics, runs[0]
+
+    (card, secs_g, launches), (cpu, secs_c, _) = card_and_cpu(torch, run)
     k = 2
     check(launches == (k + 1) * cfg.n_ticks,
           f"paper cell: {launches} sched_score_topb launches, want "
           f"{(k + 1) * cfg.n_ticks}")
-    check(torch.equal(tg[0], tc[0]) and torch.equal(tg[1], tc[1]),
-          "paper cell: decision traces differ between card and CPU")
-    check(torch.equal(tg[2].view(torch.int32), tc[2].view(torch.int32)),
-          "paper cell: severity traces differ between card and CPU")
-    check(torch.equal(sg, sc), "paper cell: terminal statuses differ")
-    for f in mg._fields:
-        a = getattr(mg, f).cpu().double().numpy()
-        b = getattr(mc, f).double().numpy()
-        check(np.allclose(a, b, rtol=1e-5, atol=1e-6, equal_nan=True),
-              f"paper cell: metric {f} {a} vs {b}")
+    same_run(torch, "paper cell", card, cpu)
+    mg = card[0]
     emit(phase="paper_cell", n_requests=160, n_ticks=cfg.n_ticks, window=256,
          k_slots=4, decisions_equal=True, statuses_equal=True,
          sched_score_topb_launches=launches,
@@ -651,6 +719,60 @@ def phase_paper_cell(torch, dev):
 # ---------------------------------------------------------------------------
 
 TRACE_FROM, TRACE_TICKS = 200, 40   # the scale run's traced window
+
+
+class TickTrace:
+    """`torch.profiler` over ticks [start, start + ticks) of a run, driven
+    from the run's `on_tick`; `fields` reads the device's busy time and
+    idle share a tick from the trace (device events only: kernels,
+    memcpy, memset; the CPU ops that launched them carry the same time
+    again)."""
+
+    def __init__(self, torch, start, ticks=TRACE_TICKS):
+        self.torch, self.start, self.ticks = torch, start, ticks
+        self.prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        self.clock = {}
+
+    def tick(self, t):
+        clock = self.clock
+        if t == self.start - 1:
+            self.torch.cuda.synchronize()
+            clock["enter"] = time.perf_counter()
+            self.prof.start()
+            clock["t0"] = time.perf_counter()
+        elif t == self.start + self.ticks - 1:
+            self.torch.cuda.synchronize()
+            clock["t1"] = time.perf_counter()
+            self.prof.stop()
+            clock["exit"] = time.perf_counter()
+
+    def fields(self, what, secs, n_ticks):
+        """The run's untraced rate and the traced window's figures."""
+        busy_us, n_device_ops, per_name = 0.0, 0, {}
+        for e in self.prof.key_averages():
+            us = float(getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0.0))
+            if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+                busy_us += us
+                n_device_ops += e.count
+                per_name[e.key] = per_name.get(e.key, 0.0) + us
+        check(n_device_ops > 0, f"{what}: the trace shows no device work")
+        clock, n = self.clock, self.ticks
+        wall_ms = (clock["t1"] - clock["t0"]) * 1e3 / n
+        untraced_s = secs - (clock["exit"] - clock["enter"])
+        busy_ms = busy_us / 1e3 / n
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+        return dict(
+            ticks_per_s_untraced=(n_ticks - n) / untraced_s,
+            traced_ticks=n, traced_from=self.start,
+            traced_wall_ms_per_tick=wall_ms,
+            traced_device_busy_ms_per_tick=busy_ms,
+            traced_device_idle_share=1.0 - busy_ms / wall_ms,
+            traced_device_ops_per_tick=n_device_ops / n,
+            traced_top_device_us_per_tick=[
+                [name[:60], us / n] for name, us in top])
 
 
 def phase_scale(torch, dev, kernels):
@@ -675,10 +797,8 @@ def phase_scale(torch, dev, kernels):
     ids = torch.arange(n, dtype=torch.int32, device=dev)
     slots = torch.arange(w, dtype=torch.int32, device=dev)
     broken = torch.zeros((), dtype=torch.bool, device=dev)
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-    clock, snap = {}, {}
+    trace = TickTrace(torch, TRACE_FROM)
+    snap = {}
 
     def on_tick(t, state, win):
         occupancy[t] = win.n_live
@@ -702,16 +822,7 @@ def phase_scale(torch, dev, kernels):
                            | lost.any() | early.any())
         if t == cfg.n_ticks // 2:
             snap["state"], snap["win"] = state, win
-        if t == TRACE_FROM - 1:
-            torch.cuda.synchronize()
-            clock["enter"] = time.perf_counter()
-            prof.start()
-            clock["t0"] = time.perf_counter()
-        elif t == TRACE_FROM + TRACE_TICKS - 1:
-            torch.cuda.synchronize()
-            clock["t1"] = time.perf_counter()
-            prof.stop()
-            clock["exit"] = time.perf_counter()
+        trace.tick(t)
 
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -767,37 +878,275 @@ def phase_scale(torch, dev, kernels):
           "scale: sched_compact_topb differs from its plain version on the "
           "run's slot pool")
 
-    # the traced window: device-side events only (kernels, memcpy,
-    # memset); the CPU ops that launched them carry the same time again
-    busy_us, n_device_ops, per_name = 0.0, 0, {}
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            busy_us += us
-            n_device_ops += e.count
-            per_name[e.key] = per_name.get(e.key, 0.0) + us
-    check(n_device_ops > 0, "scale: the trace shows no device work")
-    wall_ms = (clock["t1"] - clock["t0"]) * 1e3 / TRACE_TICKS
-    untraced_s = secs - (clock["exit"] - clock["enter"])
-    busy_ms = busy_us / 1e3 / TRACE_TICKS
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
     occ = occupancy.float()
     emit(phase="scale", n_requests=n, window=w, k_slots=b, classes=k,
          n_ticks=cfg.n_ticks, seconds=secs,
-         ticks_per_s_untraced=(cfg.n_ticks - TRACE_TICKS) / untraced_s,
          occupancy_mean=float(occ.mean()), occupancy_max=int(occ.max()),
          status_counts=counts, admits=n_admits,
          sched_score_topb_launches=launches["sched_score_topb"],
          compact_snapshot_live=int(alive.sum()), compact_snapshot_exact=True,
-         traced_ticks=TRACE_TICKS, traced_from=TRACE_FROM,
-         traced_wall_ms_per_tick=wall_ms,
-         traced_device_busy_ms_per_tick=busy_ms,
-         traced_device_idle_share=1.0 - busy_ms / wall_ms,
-         traced_device_ops_per_tick=n_device_ops / TRACE_TICKS,
-         traced_top_device_us_per_tick=[
-             [name[:60], us / TRACE_TICKS] for name, us in top])
+         **trace.fields("scale", secs, cfg.n_ticks))
     return launches["sched_score_topb"]
+
+
+# ---------------------------------------------------------------------------
+# 5a. the paper tables' policy variants, card against CPU
+# ---------------------------------------------------------------------------
+
+TABLE_TICKS = 1000
+
+
+def table_cells():
+    """name -> (policy, workload, physics or None): the information
+    ladder's no_info rung, the reverse overload shape on heavy/high, the
+    4-lane per-bucket and 4-tenant schemes, and a provider at 13 ms a
+    token.  N = 160 at 4x the rate (its arrivals land in 800 ticks);
+    heavy/high at 8x, and the slower provider's load renormalized to its
+    knee as `benchmarks/arch_physics.py` does, so each cell's traffic
+    lands inside the horizon."""
+    from repro_torch.core import policy as pol
+    from repro_torch.sim import WorkloadConfig
+    from repro_torch.sim.provider import physics_for_arch
+    from repro_torch.sim.workload import _MEAN_TOKENS
+
+    def wl(**kw):
+        return WorkloadConfig(**{**dict(n_requests=160, mix="balanced",
+                                        congestion="high",
+                                        arrival_scale=4.0), **kw})
+
+    final = pol.final_adrr_olc()
+    mean = _MEAN_TOKENS["balanced"]
+    arch_scale = 4.0 * (90.0 + 6.5 * mean) / (90.0 + 13.0 * mean)
+    return {
+        "info_no_info": (pol.with_information(final, "no_info"),
+                         wl(information="no_info"), None),
+        "shape_reverse": (pol.with_bucket_policy(final, "reverse"),
+                          wl(mix="heavy", arrival_scale=8.0), None),
+        "per_bucket": (pol.per_bucket_policy(), wl(class_map="bucket4"),
+                       None),
+        "tenant4": (pol.multi_tenant_policy(4), wl(class_map="tenant4"),
+                    None),
+        "arch_13ms": (final, wl(arrival_scale=arch_scale),
+                      physics_for_arch(ms_per_token=13.0)),
+    }
+
+
+def phase_tables(torch, dev):
+    from repro_torch.core.overload import ADMIT, DEFER, REJECT
+    from repro_torch.core.policy import n_classes
+    from repro_torch.sim import SimConfig, run_cell
+
+    cfg = SimConfig(n_ticks=TABLE_TICKS, k_slots=4, window=256)
+    total, cells = 0, {}
+    for name, (policy, wl, phys) in table_cells().items():
+        def run(d):
+            metrics, runs = run_cell(policy, wl, seeds=1, phys=phys,
+                                     sim_cfg=cfg, device=d,
+                                     collect_decisions=True)
+            return metrics, runs[0]
+
+        (card, secs_g, launches), (cpu, secs_c, _) = card_and_cpu(torch, run)
+        k = n_classes(policy)
+        check(launches == (k + 1) * cfg.n_ticks,
+              f"tables {name}: {launches} sched_score_topb launches, want "
+              f"{(k + 1) * cfg.n_ticks}")
+        same_run(torch, f"tables {name}", card, cpu)
+        total += launches
+        m, (_, (actions, _, _)) = card
+        actions = actions.cpu()
+        cells[name] = dict(
+            classes=k, launches=launches, card_seconds=secs_g,
+            cpu_seconds=secs_c,
+            admits=int((actions == ADMIT).sum()),
+            defers=int((actions == DEFER).sum()),
+            rejects=int((actions == REJECT).sum()),
+            completion_rate=float(m.completion_rate[0]),
+            short_p95_ms=float(m.short_p95_ms[0]),
+            satisfaction=float(m.satisfaction[0]))
+    emit(phase="tables", n_requests=160, n_ticks=cfg.n_ticks, window=256,
+         k_slots=4, decisions_equal=True, statuses_equal=True,
+         sched_score_topb_launches=total, cells=cells)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 5b. scenarios with provider dynamics, card against CPU
+# ---------------------------------------------------------------------------
+
+SCENARIO_DRAIN_TICKS = 800
+
+
+def phase_scenarios(torch, dev):
+    from repro_torch.core.policy import strategy
+    from repro_torch.sim import SimConfig, run_scenario_cell
+    from repro_torch.sim.scenarios import arrival_span_ms, get_scenario
+
+    n, scale, k = 160, 4.0, 2
+    total, rows = 0, {}
+    for name in ("storm", "rate_crunch"):
+        sc = get_scenario(name)
+        cfg = SimConfig(n_ticks=math.ceil(arrival_span_ms(sc, n, scale) / 25.0)
+                        + SCENARIO_DRAIN_TICKS, k_slots=4, window=256)
+
+        def run(d):
+            m, pm, runs = run_scenario_cell(
+                strategy("final_adrr_olc"), sc, seeds=1, n_requests=n,
+                sim_cfg=cfg, arrival_scale=scale, device=d,
+                collect_decisions=True)
+            return (m, runs[0]), pm
+
+        ((card, pm_g), secs_g, launches), ((cpu, pm_c), secs_c, _) = \
+            card_and_cpu(torch, run)
+        check(launches == (k + 1) * cfg.n_ticks,
+              f"scenarios {name}: {launches} sched_score_topb launches, "
+              f"want {(k + 1) * cfg.n_ticks}")
+        same_run(torch, f"scenarios {name}", card, cpu)
+        for f in pm_g._fields:
+            a, b = getattr(pm_g, f).cpu().numpy(), getattr(pm_c, f).numpy()
+            check(np.array_equal(a, b, equal_nan=True),
+                  f"scenarios {name}: phase metric {f} {a} vs {b}")
+        throttled = int(card[1][0].provider.n_throttled)
+        check(throttled > 0, f"scenarios {name}: the limiter never bounced")
+        total += launches
+        rows[name] = dict(
+            n_ticks=cfg.n_ticks, launches=launches, card_seconds=secs_g,
+            cpu_seconds=secs_c, n_throttled=throttled,
+            phase_arrived=pm_g.n_arrived[0].tolist(),
+            phase_completed=pm_g.n_completed[0].tolist(),
+            phase_shed=pm_g.shed_by_bucket[0].sum(dim=-1).tolist(),
+            phase_abandoned=pm_g.n_abandoned[0].tolist(),
+            phase_throttled=pm_g.n_throttled[0].tolist())
+    emit(phase="scenarios", n_requests=n, arrival_scale=scale, window=256,
+         k_slots=4, decisions_equal=True, statuses_equal=True,
+         phase_metrics_equal=True, sched_score_topb_launches=total,
+         scenarios=rows)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 5c. the storm scenario at the scale run's size, on the card
+# ---------------------------------------------------------------------------
+
+# the traced window lies inside the flash crowd and the brownout
+# (ticks ~965-1607 of the scale-sized storm)
+SCENARIO_TRACE_FROM = 1200
+
+
+def brownout_check(torch, phys, batch, jitter, final, actions, req_idx,
+                   infl_after, comfort, dt_ms):
+    """Each real admit's observed load multiplier (its service over the
+    unloaded latency and jitter) against the physics at the inflight
+    count the grant saw and the tick's comfort scale; then, at each
+    inflight level past the browned-out knee met both inside and outside
+    the brownout, the mean multiplier inside against outside.  The
+    inflight a grant saw is the tick's count before dispatch (after the
+    tick, less its real admits) plus the ADMIT decisions before it in
+    the batch, bounced ones included, as `schedule_batch` counts."""
+    from repro_torch.core.overload import ADMIT
+    from repro_torch.sim.provider import load_multiplier, unloaded_latency_ms
+
+    n = batch.n
+    t_all = actions.shape[0]
+    nows = (torch.arange(1, t_all + 1, dtype=torch.float32,
+                         device=actions.device) * dt_ms)
+    admit = actions == ADMIT
+    rid = torch.clamp(req_idx, 0, n - 1).long()
+    real = admit & (final.req.submit_ms[rid] == nows[:, None])
+    before = infl_after - real.sum(dim=1, dtype=torch.int32)
+    prior = torch.cumsum(admit.int(), dim=1) - admit.int()
+    seen = (before[:, None] + prior)[real]
+    scale = comfort[:, None].expand_as(real)[real]
+    rows = rid[real]
+    observed = ((final.req.finish_ms[rows] - nows[:, None].expand_as(
+        real)[real]) / jitter[rows]) / unloaded_latency_ms(
+        phys, batch.true_tokens[rows])
+    want = load_multiplier(phys, seen, scale)
+    rel = float(((observed - want).abs() / want).max())
+    check(rel < 1e-4, f"scenario_scale: an admit's service is off its "
+          f"physics by {rel:.3g} (relative)")
+    inside = scale < 1.0
+    knee = float(phys.comfort_concurrency) * float(scale.min())
+    levels = {}
+    for lvl in torch.unique(seen).tolist():
+        at = seen == lvl
+        a_in, a_out = observed[at & inside], observed[at & ~inside]
+        if lvl > knee and a_in.numel() and a_out.numel():
+            levels[int(lvl)] = (float(a_in.mean()), float(a_out.mean()),
+                                a_in.numel(), a_out.numel())
+    check(levels and all(i > o for i, o, _, _ in levels.values()),
+          f"scenario_scale: the brownout did not slow service at equal "
+          f"inflight: {levels}")
+    return dict(admits_checked=int(real.sum()), max_rel_err=rel,
+                admits_in_brownout=int(inside.sum()),
+                multiplier_in_out_by_inflight={
+                    k: [v[0], v[1]] for k, v in sorted(levels.items())})
+
+
+# N, W, B and ticks of the scale-sized storm: the scale run's
+SCENARIO_SCALE = (100_000, 4096, 16, 2000)
+
+
+def phase_scenario_scale(torch, dev):
+    from repro_torch.core.policy import strategy
+    from repro_torch.core.types import INFLIGHT, PENDING
+    from repro_torch.device import to_device
+    from repro_torch.kernels.sched_score import ops
+    from repro_torch.sim import (SimConfig, compute_phase_metrics,
+                                 default_physics, generate, run_sim)
+    from repro_torch.sim.scenarios import build, get_scenario
+
+    (n, w, b, n_ticks), k = SCENARIO_SCALE, 2
+    cfg = SimConfig(n_ticks=n_ticks, k_slots=b, window=w)
+    wl, sched, dyn, edges = build(get_scenario("storm"), n, cfg.n_ticks,
+                                  cfg.dt_ms, limiter_classes=k,
+                                  arrival_scale=n / 160)
+    batch, jitter = generate(wl, torch.Generator().manual_seed(0),
+                             device=dev, sched=sched)
+    policy, phys = strategy("final_adrr_olc"), default_physics()
+    infl_after = torch.zeros(cfg.n_ticks, dtype=torch.int32, device=dev)
+    trace = TickTrace(torch, SCENARIO_TRACE_FROM)
+
+    def on_tick(t, state, win):
+        infl_after[t] = state.provider.inflight
+        trace.tick(t)
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, (actions, req_idx, _) = run_sim(
+        policy, batch, jitter, phys, cfg, dyn, device=dev, on_tick=on_tick,
+        collect_decisions=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.LAUNCHES["sched_score_topb"]
+    check(launches == (k + 1) * cfg.n_ticks,
+          f"scenario_scale: {launches} sched_score_topb launches, want "
+          f"{(k + 1) * cfg.n_ticks}")
+    counts = torch.bincount(final.req.status.long(), minlength=5).tolist()
+    check(counts[PENDING] == 0 and counts[INFLIGHT] == 0,
+          f"scenario_scale: requests left live after the drain: {counts}")
+    throttled = int(final.provider.n_throttled)
+    check(throttled > 0 and throttled == int(final.req.n_throttles.sum()),
+          f"scenario_scale: {throttled} bounces, "
+          f"{int(final.req.n_throttles.sum())} on the requests")
+    phys_d, dyn_d = to_device((phys, dyn), dev)
+    brownout = brownout_check(torch, phys_d, batch, jitter, final, actions,
+                              req_idx, infl_after, dyn_d.comfort_scale,
+                              cfg.dt_ms)
+    pm = compute_phase_metrics(batch, final, edges, k)
+    emit(phase="scenario_scale", scenario="storm", n_requests=n, window=w,
+         k_slots=b, classes=k, n_ticks=cfg.n_ticks, arrival_scale=n / 160,
+         seconds=secs, sched_score_topb_launches=launches,
+         status_counts=counts, n_throttled=throttled,
+         phase_edges_ms=edges.tolist(),
+         phase_arrived=pm.n_arrived.tolist(),
+         phase_completed=pm.n_completed.tolist(),
+         phase_shed=pm.shed_by_bucket.sum(dim=-1).tolist(),
+         phase_abandoned=pm.n_abandoned.tolist(),
+         phase_throttled=pm.n_throttled.tolist(),
+         brownout=brownout,
+         **trace.fields("scenario_scale", secs, cfg.n_ticks))
+    return launches
 
 
 # ---------------------------------------------------------------------------

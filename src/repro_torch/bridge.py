@@ -2,8 +2,10 @@
 
 `from_numpy(obj, device)` turns the reference's NamedTuples (the
 `RequestBatch`, the jitter vector, `PolicyConfig`, `ProviderPhysics`,
-`SimState`, `WindowCarry`), given with numpy (or any array-like)
-leaves, into this package's types on `device`.  Types are matched by
+`ProviderDynamics`, `ArrivalSchedule`, `SimState`, `WindowCarry`),
+given with numpy (or any array-like) leaves, into this package's types
+on `device`; None leaves (a mechanism that is off) and Python bools
+(`ArrivalSchedule.mix_varies`) stay as they are.  Types are matched by
 field name (`_fields`), not by importing the reference: the port type
 whose fields all appear in the object wins, as long as every field it
 lacks is None there (fleet-only fields such as `RequestState.endpoint`
@@ -35,10 +37,12 @@ from repro_torch.core.types import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.sim.provider import ProviderPhysics
+from repro_torch.sim.provider import ProviderDynamics, ProviderPhysics
+from repro_torch.sim.workload import ArrivalSchedule
 
 PORT_TYPES = (RequestBatch, RequestState, SchedState, ProviderState,
-              SimState, WindowCarry, PolicyConfig, ProviderPhysics)
+              SimState, WindowCarry, PolicyConfig, ProviderPhysics,
+              ProviderDynamics, ArrivalSchedule)
 _DTYPES = (np.dtype(np.float32), np.dtype(np.int32), np.dtype(np.bool_))
 
 
@@ -60,8 +64,8 @@ def _match(obj):
 
 
 def _convert(obj, dev):
-    if obj is None:
-        return None
+    if obj is None or isinstance(obj, bool):
+        return obj
     if hasattr(obj, "_fields"):
         t = _match(obj)
         vals = {}

@@ -9,6 +9,12 @@ Counterpart of `repro.core.policy`.  The named strategies:
   fair_queuing    alloc_mode=FQ (strict round-robin between classes)
   short_priority  alloc_mode=SP (interactive class strictly first)
 
+Overload `bucket_policy` shapes (paper §4.7) are the per-bucket
+threshold tables `defer_thr` / `reject_thr` (inf = never); see
+`with_bucket_policy`.  `with_information` is the policy-side part of
+the information ladder (paper §4.4); `per_bucket_policy` and
+`multi_tenant_policy` make the 4-lane and K-tenant policies.
+
 Every field is a float32 tensor except `alloc_mode`, which stays a
 Python int: the allocation layer branches on it in Python, so a tick
 needs no host sync to pick its mode (the reference `lax.switch`es on a
@@ -161,6 +167,45 @@ def short_priority() -> PolicyConfig:
     return base_policy(alloc_mode=ALLOC_SP, olc_enabled=_f(0.0))
 
 
+# ---------------------------------------------------------------------------
+# Overload bucket_policy shapes (paper §4.7) applied on top of Final (OLC)
+# ---------------------------------------------------------------------------
+
+BUCKET_POLICIES = {
+    "ladder": ([NEVER, NEVER, 0.45, 0.45], [NEVER, NEVER, 0.80, 0.65]),
+    "uniform_mild": ([NEVER, 0.45, 0.45, 0.45], [NEVER] * 4),
+    "uniform_harsh": ([NEVER, 0.45, 0.45, 0.45], [NEVER, 0.65, 0.65, 0.65]),
+    "reverse": ([NEVER, NEVER, 0.45, 0.45], [NEVER, NEVER, 0.65, 0.80]),
+}
+
+
+def with_bucket_policy(cfg: PolicyConfig, shape: str) -> PolicyConfig:
+    """`cfg` with the defer/reject tables of an overload shape; an
+    unknown shape raises `KeyError`."""
+    d, r = BUCKET_POLICIES[shape]
+    return cfg._replace(defer_thr=_f(d), reject_thr=_f(r))
+
+
+def with_information(cfg: PolicyConfig, level: str) -> PolicyConfig:
+    """Information-ladder conditions (paper §4.4), policy side; the
+    workload generator owns the priors.  `no_info` runs one neutral lane
+    with uniform admission thresholds (the client cannot infer cost from
+    labels); the other levels keep `cfg`."""
+    if level == "no_info":
+        return cfg._replace(
+            route_by_class=_f(0.0),
+            defer_thr=_f([0.60] * 4),
+            reject_thr=_f([0.92] * 4),
+        )
+    if level in ("class_only", "coarse", "oracle"):
+        return cfg
+    raise ValueError(f"unknown information level: {level}")
+
+
+# ---------------------------------------------------------------------------
+# K-class policies (beyond-paper scenarios)
+# ---------------------------------------------------------------------------
+
 def kclass_policy(
     k: int,
     *,
@@ -189,6 +234,26 @@ def kclass_policy(
                 f"{name} must have shape ({k},), got {tuple(arr.shape)}")
     return base_policy(
         drr_weights=w, class_cap=c, class_protect=p, ord_scored=s, **overrides
+    )
+
+
+def multi_tenant_policy(k: int, **overrides) -> PolicyConfig:
+    """K symmetric tenants: uniform DRR weights, per-tenant inflight caps,
+    scored ordering in every lane, no protected lane."""
+    return kclass_policy(k, **overrides)
+
+
+def per_bucket_policy(**overrides) -> PolicyConfig:
+    """Four lanes keyed on the token bucket (short/medium/long/xlong):
+    the short lane keeps the protected-FIFO role; the other three use
+    the scored rule with descending weight."""
+    return kclass_policy(
+        4,
+        weights=[2.0, 1.0, 0.7, 0.4],
+        caps=[16.0, 6.0, 4.0, 3.0],
+        protect=[1.0, 0.0, 0.0, 0.0],
+        scored=[0.0, 1.0, 1.0, 1.0],
+        **overrides,
     )
 
 

@@ -1,7 +1,10 @@
 """The fused three-layer client scheduler (paper §3), K classes.
 
-Counterpart of `repro.core.scheduler`'s `schedule_batch`: one pass that
-grants up to B releases per decision epoch.  The O(K·N) work —
+Counterpart of `repro.core.scheduler`.  `schedule_slot` composes the
+layers once: allocation picks a class, ordering names its request, the
+overload layer may block or delay it.  `schedule_batch` grants up to B
+releases per decision epoch in one pass; with `max_grants=1` it makes
+`schedule_slot`'s decision.  The O(K·N) work —
 eligibility, the ranked top-B candidates per class and the global FIFO
 lane, one severity evaluation — runs up front; the grant loop then
 replays only the O(K) allocation step per grant.  Severity is frozen
@@ -23,6 +26,14 @@ from repro_torch.core.policy import ALLOC_ADRR, PolicyConfig, n_classes
 from repro_torch.core.types import INFLIGHT, RequestBatch, SimState, take
 
 IDLE = -1
+
+
+class SlotDecision(NamedTuple):
+    action: torch.Tensor   # () int32: -1 idle, 0 admit, 1 defer, 2 reject
+    req_idx: torch.Tensor  # () int32 target request (valid iff action>=0)
+    severity: torch.Tensor  # () float32 overload severity used
+    deficit: torch.Tensor  # (K,) float32 updated allocation deficits
+    rr_turn: torch.Tensor  # () int32 updated FQ pointer
 
 
 class BatchDecision(NamedTuple):
@@ -53,6 +64,88 @@ def _refund(cfg, k, cls_id, head_cost, action, ignore_class: bool):
     onehot = (torch.arange(k, device=head_cost.device) == cls_id).float()
     blocked = (action == overload.DEFER) | (action == overload.REJECT)
     return onehot * take(head_cost, cls_id) * blocked.float()
+
+
+def refund_deficit(deficit, refund):
+    """`deficit + refund` where every entry stays finite, else `deficit`
+    (None: no refund)."""
+    if refund is None:
+        return deficit
+    return torch.where(torch.isfinite(deficit + refund), deficit + refund,
+                       deficit)
+
+
+def charge_resubmit(cfg: PolicyConfig, deficit: torch.Tensor,
+                    charge: torch.Tensor) -> torch.Tensor:
+    """Debit resubmission traffic (the (K,) per-class p50 cost sent again
+    this epoch) against the class deficits, so that retries do not ride
+    for free.  Only ADRR charges deficits; with no charge, or a debit
+    that is not finite, `deficit` comes back unchanged in its bits (x -
+    0.0 is not an identity at -0.0)."""
+    if cfg.alloc_mode != ALLOC_ADRR:
+        return deficit
+    debited = deficit - charge
+    return torch.where((charge > 0.0).any() & torch.isfinite(debited).all(),
+                       debited, deficit)
+
+
+def schedule_slot(cfg: PolicyConfig, batch: RequestBatch, state: SimState
+                  ) -> SlotDecision:
+    """One send opportunity: allocation -> ordering -> overload."""
+    k = n_classes(cfg)
+    i32 = torch.int32
+    now = state.now_ms
+    elig = ordering.eligibility(batch, state.req.status,
+                                state.req.defer_until, now)
+    eff_cls = effective_class(cfg, batch)
+    karange = torch.arange(k, dtype=i32, device=elig.device)
+    cls_onehot = eff_cls[None, :] == karange[:, None]
+    elig_kn = cls_onehot & elig[None, :]
+
+    # layer 2 first per class: allocation tests each head's cost
+    cand_idx, cand_ok = ordering.select_per_class(batch, elig_kn, now, cfg)
+    head_cost = torch.where(cand_ok, take(batch.p50, cand_idx), float("inf"))
+    inflight_cls = (cls_onehot & (state.req.status == INFLIGHT)[None, :]).sum(
+        dim=1, dtype=i32)
+    sev = overload.severity_score(
+        cfg,
+        inflight_total=state.provider.inflight,
+        n_pending=elig.sum(dtype=i32),
+        ema_latency_ratio=state.sched.ema_latency_ratio,
+    )
+    choice = drr.allocate(
+        cfg,
+        backlog=elig_kn.sum(dim=1, dtype=i32),
+        head_cost=head_cost,
+        inflight_cls=inflight_cls,
+        inflight_total=state.provider.inflight,
+        severity=sev,
+        deficit=state.sched.deficit,
+        rr_turn=state.sched.rr_turn,
+    )
+    if choice.ignore_class:
+        # naive mode ignores lanes: the global FIFO head
+        fifo_idx, n_elig = ordering.rank_fifo(batch, elig, 1)
+        idx, ok = fifo_idx[0], n_elig > 0
+    else:
+        idx, ok = take(cand_idx, choice.cls_id), take(cand_ok, choice.cls_id)
+    ok = ok & choice.send_ok
+    act = overload.admission_action(
+        cfg,
+        severity=sev,
+        bucket=take(batch.bucket, idx),
+        n_defers=take(state.req.n_defers, idx),
+    )
+    action = torch.where(ok, act, IDLE).to(i32)
+    refund = _refund(cfg, k, choice.cls_id, head_cost, action,
+                     choice.ignore_class)
+    return SlotDecision(
+        action=action,
+        req_idx=idx.to(i32),
+        severity=sev,
+        deficit=refund_deficit(choice.deficit, refund),
+        rr_turn=choice.rr_turn,
+    )
 
 
 def schedule_batch(
@@ -136,10 +229,7 @@ def schedule_batch(
 
         refund = _refund(cfg, k, choice.cls_id, head_cost, action,
                          choice.ignore_class)
-        deficit = choice.deficit
-        if refund is not None:
-            deficit = torch.where(torch.isfinite(deficit + refund),
-                                  deficit + refund, deficit)
+        deficit = refund_deficit(choice.deficit, refund)
         rr_turn = choice.rr_turn
 
         # cumulative bookkeeping for the next grant: a live decision

@@ -1,11 +1,32 @@
 """Discrete-event simulation of the black-box provider boundary, in torch."""
 from repro_torch.sim.engine import SimConfig, run_sim  # noqa: F401
-from repro_torch.sim.metrics import SimMetrics, compute_metrics  # noqa: F401
-from repro_torch.sim.provider import ProviderPhysics, default_physics  # noqa: F401
+from repro_torch.sim.faults import FaultSchedule, fault_draw  # noqa: F401
+from repro_torch.sim.metrics import (  # noqa: F401
+    PhaseMetrics,
+    SimMetrics,
+    compute_metrics,
+    compute_phase_metrics,
+)
+from repro_torch.sim.provider import (  # noqa: F401
+    ProviderDynamics,
+    ProviderPhysics,
+    default_physics,
+    physics_for_arch,
+)
 from repro_torch.sim.runner import (  # noqa: F401
     fmt_cell,
     run_cell,
+    run_scenario_cell,
     summarize,
     window_for,
+)
+from repro_torch.sim.scenarios import (  # noqa: F401
+    SCENARIOS,
+    FleetSpec,
+    Phase,
+    Scenario,
+    build_fleet,
+    get_scenario,
+    list_scenarios,
 )
 from repro_torch.sim.workload import REGIMES, WorkloadConfig, generate  # noqa: F401

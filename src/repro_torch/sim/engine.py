@@ -18,8 +18,15 @@ is bit-exact with the dense one.
 Where the reference scatters with the out-of-range index n and
 `mode="drop"`, the port scatters into a copy with one spare tail slot
 and slices it off (`_set_drop`).  The tick body reads nothing back to
-the host, so on CUDA the loop only enqueues work.  Provider dynamics
-and the fleet axis are not part of this package yet.
+the host, so on CUDA the loop only enqueues work.
+
+Provider dynamics (`sim/provider.ProviderDynamics`): each tick reads its
+row of the schedules.  A brownout's `comfort_scale[t]` prices the
+tick's admits; a token-bucket limiter refills each class's bucket after
+the retire pass and before dispatch, `min(tokens + refill[t],
+capacity)`, and an admit that finds its bucket out of grants bounces:
+it stays PENDING, retries `retry_after_ms` later, and its DRR charge is
+refunded in ADRR mode.  The fleet axis is not part of this package yet.
 """
 from __future__ import annotations
 
@@ -29,8 +36,12 @@ import torch
 
 from repro_torch.core import overload as olc
 from repro_torch.core.numerics import fma32, pinned, sum32
-from repro_torch.core.policy import PolicyConfig, n_classes
-from repro_torch.core.scheduler import BatchDecision, schedule_batch
+from repro_torch.core.policy import ALLOC_ADRR, PolicyConfig, n_classes
+from repro_torch.core.scheduler import (
+    BatchDecision,
+    refund_deficit,
+    schedule_batch,
+)
 from repro_torch.core.types import (
     ABANDONED,
     COMPLETED,
@@ -47,6 +58,7 @@ from repro_torch.core.types import (
 )
 from repro_torch.device import resolve_device, to_device
 from repro_torch.sim.provider import (
+    ProviderDynamics,
     ProviderPhysics,
     load_multiplier,
     unloaded_latency_ms,
@@ -140,24 +152,55 @@ def _complete_and_timeout(cfg: PolicyConfig, phys: ProviderPhysics,
 
 def _apply_batch(cfg: PolicyConfig, phys: ProviderPhysics,
                  batch: RequestBatch, jitter: torch.Tensor, state: SimState,
-                 d: BatchDecision) -> SimState:
+                 d: BatchDecision, comfort_scale=None,
+                 limiter: ProviderDynamics | None = None) -> SimState:
     """State transition for up to B grants as one set of scatters.
     Grants target distinct requests, so the scatters never collide;
-    idle rows are dropped."""
+    idle rows are dropped.  `comfort_scale` is this tick's brownout
+    value (None = stationary); `limiter` turns on the token bucket: the
+    g-th admit of a class this batch goes through iff its bucket holds
+    g grants (later grants were still decided against the optimistic
+    inflight count, as a real client only sees the bounce after the
+    send)."""
     n = batch.n
     req = state.req
+    provider = state.provider
     now = state.now_ms
     admit = d.actions == olc.ADMIT
     defer = d.actions == olc.DEFER
     reject = d.actions == olc.REJECT
     idx = d.req_idx
     safe = torch.clamp(idx, 0, n - 1)  # idle rows may carry the sentinel n
+    deficit = d.deficit
+    throttled = None
+    if limiter is not None:
+        k = provider.tb_tokens.shape[0]
+        gcls = torch.clamp(take(batch.cls, safe), 0, k - 1)
+        karange = torch.arange(k, dtype=torch.int32, device=gcls.device)
+        cls_admit = (gcls[:, None] == karange) & admit[:, None]   # (B, K)
+        rank = (torch.cumsum(cls_admit, 0, dtype=torch.int32)
+                * cls_admit).sum(dim=1)                           # 1-based
+        allowed = rank.float() <= take(provider.tb_tokens, gcls) + 1e-6
+        throttled = admit & ~allowed
+        admit = admit & allowed
+        consumed = (cls_admit & admit[:, None]).sum(dim=0).float()
+        provider = provider._replace(
+            tb_tokens=provider.tb_tokens - consumed,
+            n_throttled=provider.n_throttled + throttled.sum(
+                dtype=torch.int32))
+        if cfg.alloc_mode == ALLOC_ADRR:
+            # the 429 blocked a release the allocation layer charged for:
+            # credit it back like a defer/reject refund
+            deficit = refund_deficit(deficit, sum32(
+                (gcls[:, None] == karange).float()
+                * take(batch.p50, safe)[:, None]
+                * throttled[:, None].float(), dim=0))
 
     # per-grant service at the inflight level the grant saw.  XLA:CPU
     # contracts the reference's trailing `service * jitter + now` into an
     # FMA; fma32 rounds that step once, identically on the CPU and CUDA.
     base = unloaded_latency_ms(phys, take(batch.true_tokens, safe)) * \
-        load_multiplier(phys, d.inflight_at)
+        load_multiplier(phys, d.inflight_at, comfort_scale)
     finish = fma32(base, take(jitter, safe), now)
     backoff = olc.defer_backoff(cfg, d.severity, take(req.n_defers, safe))
 
@@ -165,6 +208,14 @@ def _apply_batch(cfg: PolicyConfig, phys: ProviderPhysics,
         req.status, idx,
         torch.where(admit, INFLIGHT, REJECTED).to(torch.int32),
         admit | reject)
+    defer_until = _set_drop(req.defer_until, idx, now + backoff, defer)
+    n_throttles = req.n_throttles
+    if throttled is not None:
+        defer_until = _set_drop(defer_until, idx,
+                                (now + limiter.retry_after_ms).expand(
+                                    idx.shape), throttled)
+        n_throttles = _set_drop(n_throttles, idx, 1, throttled,
+                                accumulate=True)
     admitted = admit.sum(dtype=torch.int32)
     return state._replace(
         req=req._replace(
@@ -172,13 +223,14 @@ def _apply_batch(cfg: PolicyConfig, phys: ProviderPhysics,
             submit_ms=_set_drop(req.submit_ms, idx, now.expand(idx.shape),
                                 admit),
             finish_ms=_set_drop(req.finish_ms, idx, finish, admit),
-            defer_until=_set_drop(req.defer_until, idx, now + backoff, defer),
+            defer_until=defer_until,
             n_defers=_set_drop(req.n_defers, idx, 1, defer, accumulate=True),
+            n_throttles=n_throttles,
         ),
-        sched=state.sched._replace(deficit=d.deficit, rr_turn=d.rr_turn),
-        provider=state.provider._replace(
-            inflight=state.provider.inflight + admitted,
-            inflight_tokens=state.provider.inflight_tokens + sum32(
+        sched=state.sched._replace(deficit=deficit, rr_turn=d.rr_turn),
+        provider=provider._replace(
+            inflight=provider.inflight + admitted,
+            inflight_tokens=provider.inflight_tokens + sum32(
                 torch.where(admit, take(batch.p50, safe), 0.0)),
         ),
     )
@@ -248,16 +300,27 @@ def _compact_and_admit(batch: RequestBatch, win: WindowCarry,
 def sim_tick(policy: PolicyConfig, phys: ProviderPhysics,
              batch: RequestBatch, jitter: torch.Tensor, state: SimState,
              win: WindowCarry | None, now_ms: torch.Tensor, *,
-             k_slots: int, backend: str, collect_decisions: bool = False):
-    """One decision epoch: retire -> compact + admit -> dispatch ->
-    apply.  `win=None` runs the dense O(N) transition; a `WindowCarry`
-    runs the O(W) active-window path.  Returns (state, win, ys) with ys
-    the tick's decision-trace row (actions, global req_idx, severity)
-    or None."""
+             k_slots: int, backend: str, collect_decisions: bool = False,
+             comfort_t=None, refill_t=None,
+             limiter: ProviderDynamics | None = None):
+    """One decision epoch: retire -> compact + admit -> limiter refill ->
+    dispatch -> apply.  `win=None` runs the dense O(N) transition; a
+    `WindowCarry` runs the O(W) active-window path.  `comfort_t` is the
+    tick's brownout value, `refill_t` its (K,) bucket refill and
+    `limiter` the dynamics holding the buckets' capacity and Retry-After
+    (each None when off).  Returns (state, win, ys) with ys the tick's
+    decision-trace row (actions, global req_idx, severity) or None."""
     state = state._replace(now_ms=now_ms)
     if win is not None:
         state, alive = _retire_window(policy, phys, batch, state, win)
         win = _compact_and_admit(batch, win, alive, now_ms)
+    else:
+        state = _complete_and_timeout(policy, phys, batch, state)
+    if limiter is not None:
+        state = state._replace(provider=state.provider._replace(
+            tb_tokens=torch.minimum(state.provider.tb_tokens + refill_t,
+                                    limiter.tb_capacity)))
+    if win is not None:
         win_batch, win_req, _ = _window_view(batch, state.req, win.slot_req)
         d = schedule_batch(policy, win_batch, state._replace(req=win_req),
                            max_grants=k_slots, backend=backend)
@@ -267,37 +330,46 @@ def sim_tick(policy: PolicyConfig, phys: ProviderPhysics,
         d = d._replace(
             req_idx=take(win.slot_req, torch.clamp(d.req_idx, 0, w - 1)))
     else:
-        state = _complete_and_timeout(policy, phys, batch, state)
         d = schedule_batch(policy, batch, state, max_grants=k_slots,
                            backend=backend)
-    state = _apply_batch(policy, phys, batch, jitter, state, d)
+    state = _apply_batch(policy, phys, batch, jitter, state, d,
+                         comfort_scale=comfort_t, limiter=limiter)
     ys = (d.actions, d.req_idx, d.severity) if collect_decisions else None
     return state, win, ys
 
 
 def run_sim(policy: PolicyConfig, batch: RequestBatch, jitter: torch.Tensor,
             phys: ProviderPhysics, sim_cfg: SimConfig = SimConfig(),
-            dynamics=None, collect_decisions: bool = False, fleet=None, *,
+            dynamics: ProviderDynamics | None = None,
+            collect_decisions: bool = False, fleet=None, *,
             device="cuda", on_tick=None):
     """Run the full horizon on `device`; returns the final SimState, or
     (final, (actions (T,B), req_idx (T,B), severity (T,))) with
     `collect_decisions=True` (req_idx in global request ids on both
-    engines).  Windowed mode needs `batch.arrival_ms` sorted ascending
-    (the generator's native order).  `on_tick(t, state, win)`, when
-    given, is called after every tick (win is None on the dense path)
-    and must not modify what it is handed."""
-    if dynamics is not None:
-        raise NotImplementedError(
-            "provider dynamics (brownouts, rate limits) are not ported yet: "
-            "ROADMAP queue A, item A5")
+    engines).  `dynamics` adds the provider's per-tick schedules (each
+    at least `sim_cfg.n_ticks` long); the token buckets start full.
+    Windowed mode needs `batch.arrival_ms` sorted ascending (the
+    generator's native order).  `on_tick(t, state, win)`, when given,
+    is called after every tick (win is None on the dense path) and must
+    not modify what it is handed."""
+    if fleet is not None and dynamics is not None:
+        raise ValueError(
+            "fleet and dynamics are mutually exclusive: use "
+            "FleetDynamics for per-endpoint schedules")
     if fleet is not None:
         raise NotImplementedError(
-            "the fleet axis is not ported yet: ROADMAP queue A, item A5")
+            "the fleet axis is not ported yet: ROADMAP queue A, item A5(b)")
     dev = resolve_device(device)
-    policy, phys, batch, jitter = to_device((policy, phys, batch, jitter),
-                                            dev)
+    policy, phys, batch, jitter, dynamics = to_device(
+        (policy, phys, batch, jitter, dynamics), dev)
     n = batch.n
     state = init_sim_state(n, n_classes(policy), dev)
+    comfort = dynamics.comfort_scale if dynamics is not None else None
+    limiter = (dynamics if dynamics is not None
+               and dynamics.tb_refill is not None else None)
+    if limiter is not None:
+        state = state._replace(provider=state.provider._replace(
+            tb_tokens=limiter.tb_capacity))
     win = (init_window_carry(sim_cfg.window, n, dev)
            if sim_cfg.window is not None else None)
     # tick t runs at (t + 1) * dt, rounded to float32 as in the reference
@@ -308,7 +380,10 @@ def run_sim(policy: PolicyConfig, batch: RequestBatch, jitter: torch.Tensor,
         state, win, ys = sim_tick(
             policy, phys, batch, jitter, state, win, nows[t],
             k_slots=sim_cfg.k_slots, backend=sim_cfg.ordering_backend,
-            collect_decisions=collect_decisions)
+            collect_decisions=collect_decisions,
+            comfort_t=None if comfort is None else comfort[t],
+            refill_t=None if limiter is None else limiter.tb_refill[t],
+            limiter=limiter)
         if collect_decisions:
             trace.append(ys)
         if on_tick is not None:

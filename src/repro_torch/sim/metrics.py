@@ -1,7 +1,8 @@
 """Joint metrics (paper §4.3), with per-class vectors for K-class runs.
 
-Counterpart of `repro.sim.metrics` (`masked_percentile`, `SimMetrics`,
-`compute_metrics`; the per-phase metrics come with the scenario port).
+Counterpart of `repro.sim.metrics`: `masked_percentile`, `SimMetrics`
+and `compute_metrics`, and the per-phase metrics of a scenario run
+(`PhaseMetrics`, `compute_phase_metrics`).
 The paper reads these together: short P95, global P95, completion
 rate, deadline satisfaction, useful goodput, makespan and the overload
 action counts that make shedding legible.
@@ -113,4 +114,78 @@ def compute_metrics(batch: RequestBatch, final: SimState,
         class_satisfaction=met_k / torch.clamp(accepted_k, min=1),
         class_goodput_rps=met_k / makespan_s,
         class_n_requests=cls_kn.sum(dim=1).to(torch.int32),
+    )
+
+
+class PhaseMetrics(NamedTuple):
+    """Per-phase joint metrics of a scenario run (leading axis = phase).
+    A request belongs to the phase its arrival falls in (arrivals past
+    the last edge go to the last phase).  Counts are over offered
+    requests; rates are over the phase's accepted set.  An empty phase
+    (or phase x class) has NaN percentiles."""
+
+    phase_start_ms: torch.Tensor      # (P,) float32 window left edges
+    n_arrived: torch.Tensor           # (P,) int32 offered per phase
+    n_completed: torch.Tensor         # (P,) int32
+    n_abandoned: torch.Tensor         # (P,) int32 implicit failures
+    n_throttled: torch.Tensor         # (P,) int32 provider 429 bounces
+    shed_by_bucket: torch.Tensor      # (P, 4) int32 rejects per ladder rung
+    satisfaction: torch.Tensor        # (P,) float32 deadline-met / accepted
+    p95_ms: torch.Tensor              # (P,) float32 completed-latency P95
+    class_p95_ms: torch.Tensor        # (P, K) float32
+    class_satisfaction: torch.Tensor  # (P, K) float32
+
+
+def compute_phase_metrics(batch: RequestBatch, final: SimState,
+                          edges_ms: torch.Tensor,
+                          n_classes: int | None = None) -> PhaseMetrics:
+    """Windowed metrics over the (P+1,) phase boundaries `edges_ms`."""
+    if n_classes is None:
+        n_classes = final.sched.deficit.shape[-1]
+    dev = batch.arrival_ms.device
+    edges_ms = edges_ms.to(dev)
+    n_phases = edges_ms.shape[0] - 1
+    i32 = torch.int32
+    req = final.req
+    done = (req.status == COMPLETED) & batch.valid
+    rejected = (req.status == REJECTED) & batch.valid
+    abandoned = (req.status == ABANDONED) & batch.valid
+    latency = req.finish_ms - batch.arrival_ms
+    met = done & (req.finish_ms <= batch.arrival_ms + batch.deadline_budget_ms)
+
+    phase = torch.clamp(
+        torch.searchsorted(edges_ms, batch.arrival_ms, right=True) - 1,
+        0, n_phases - 1)
+    in_p = (phase[None, :] == torch.arange(n_phases, device=dev)[:, None]
+            ) & batch.valid[None, :]                               # (P, N)
+    cls = torch.clamp(batch.cls, 0, n_classes - 1)
+    cls_kn = cls[None, :] == torch.arange(n_classes, dtype=i32,
+                                          device=dev)[:, None]     # (K, N)
+    in_pk = in_p[:, None, :] & cls_kn[None, :, :]                  # (P, K, N)
+    accepted_p = torch.clamp((in_p & ~rejected[None, :]).sum(dim=1), min=1)
+    accepted_pk = torch.clamp((in_pk & ~rejected[None, None, :]).sum(dim=2),
+                              min=1)
+    done_p = in_p & done[None, :]
+    done_pk = in_pk & done[None, None, :]
+    bucket_oh = batch.bucket[None, :] == torch.arange(
+        4, dtype=i32, device=dev)[:, None]                         # (4, N)
+    shed = (in_p[:, None, :] & bucket_oh[None, :, :]
+            & rejected[None, None, :]).sum(dim=2)
+
+    return PhaseMetrics(
+        phase_start_ms=edges_ms[:-1],
+        n_arrived=in_p.sum(dim=1, dtype=i32),
+        n_completed=done_p.sum(dim=1, dtype=i32),
+        n_abandoned=(in_p & abandoned[None, :]).sum(dim=1, dtype=i32),
+        n_throttled=torch.where(in_p, req.n_throttles[None, :], 0).sum(
+            dim=1, dtype=i32),
+        shed_by_bucket=shed.to(i32),
+        satisfaction=(in_p & met[None, :]).sum(dim=1) / accepted_p,
+        p95_ms=torch.stack([masked_percentile(latency, m, 0.95)
+                            for m in done_p]),
+        class_p95_ms=torch.stack([
+            torch.stack([masked_percentile(latency, m, 0.95) for m in row])
+            for row in done_pk]),
+        class_satisfaction=(in_pk & met[None, None, :]).sum(dim=2)
+        / accepted_pk,
     )

@@ -11,8 +11,16 @@ generator's device, by default the CPU, so a run on the CPU and a run
 on CUDA see the same batch), then moves the batch to `device`.  The
 draws differ from `jax.random`'s, so this generator matches the
 reference only in distribution; parity tests feed the reference's
-`(batch, jitter)` through `repro_torch.bridge` instead.  Nonstationary
-arrival schedules are not part of this package yet (ROADMAP queue A).
+`(batch, jitter)` through `repro_torch.bridge` instead.
+
+Nonstationary arrivals: `generate` optionally takes an
+`ArrivalSchedule`, a piecewise-constant rate multiplier and bucket mix
+over phases.  Arrivals are the stationary Poisson stream time-warped
+through the inverse of the cumulative-work function, so the trivial
+schedule (one phase, unit multiplier) gives a batch bit-identical to
+the stationary one: the warp is `0 + (u - 0) / 1.0`.  Per-phase bucket
+mixes draw buckets by inverse CDF only when the mix varies, so a
+schedule that only shapes the rate keeps the bucket stream.
 """
 from __future__ import annotations
 
@@ -79,6 +87,51 @@ class WorkloadConfig(NamedTuple):
     class_map: str = "paper2"     # lane scheme: paper2 | bucket4 | tenant<K>
 
 
+class ArrivalSchedule(NamedTuple):
+    """Piecewise-constant arrival shaping over P phases: phase p covers
+    `[t0_ms[p], t0_ms[p+1])` (the last extends to +inf) at rate
+    multiplier `rate_mult[p]` with bucket mix `mix_w[p]`; `cum_work_ms[p]`
+    is the stationary-equivalent work before phase p.  `mix_varies` is a
+    Python bool: whether any phase deviates from the base mix."""
+
+    t0_ms: torch.Tensor        # (P,) float32 phase start times
+    cum_work_ms: torch.Tensor  # (P,) float32 warped work at each start
+    rate_mult: torch.Tensor    # (P,) float32 arrival-rate multiplier
+    mix_w: torch.Tensor        # (P, 4) float32 bucket mix per phase
+    mix_varies: bool
+
+
+def _bisect_right(edges: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Index of the interval of `edges` holding each x, clipped into
+    [0, len(edges))."""
+    p = torch.searchsorted(edges, x, right=True) - 1
+    return torch.clamp(p, 0, edges.shape[0] - 1)
+
+
+def phase_index(sched: ArrivalSchedule, t_ms: torch.Tensor) -> torch.Tensor:
+    """Phase id of each time point (clipped into [0, P))."""
+    return _bisect_right(sched.t0_ms, t_ms).to(torch.int32)
+
+
+def warp_arrivals(work_ms: torch.Tensor, sched: ArrivalSchedule
+                  ) -> torch.Tensor:
+    """Map stationary-equivalent work onto wall-clock arrival times: a
+    phase with multiplier m compresses its arrivals by 1/m; work past the
+    last boundary goes on at the last phase's multiplier."""
+    p = _bisect_right(sched.cum_work_ms, work_ms)
+    return sched.t0_ms[p] + (work_ms - sched.cum_work_ms[p]) / \
+        sched.rate_mult[p]
+
+
+def _sample_bucket_per_request(p: torch.Tensor, g: torch.Generator
+                               ) -> torch.Tensor:
+    """Inverse-CDF draw of one bucket a request from its (N, 4) mix."""
+    cdf = torch.cumsum(p, dim=-1)
+    cdf = cdf / cdf[..., -1:]
+    r = torch.rand((p.shape[0], 1), generator=g, device=g.device)
+    return (r >= cdf[..., :-1]).sum(dim=-1).to(torch.int32)
+
+
 def n_classes_of(class_map: str) -> int:
     """Static class count implied by a lane scheme."""
     if class_map == "paper2":
@@ -100,10 +153,12 @@ def _uniform(n, lo, hi, g):
 
 
 def generate(cfg: WorkloadConfig, generator: torch.Generator | None = None,
-             *, device="cuda") -> tuple[RequestBatch, torch.Tensor]:
+             *, device="cuda", sched: ArrivalSchedule | None = None
+             ) -> tuple[RequestBatch, torch.Tensor]:
     """Returns (batch, jitter) on `device`; jitter is the provider-side
     noise vector.  Arrivals come out sorted (the windowed engine relies
-    on it)."""
+    on it).  `sched` shapes the arrivals (and the bucket mix, where it
+    varies) over phases; None is the stationary path."""
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(0) if generator is None else generator
     gdev = g.device
@@ -111,10 +166,17 @@ def generate(cfg: WorkloadConfig, generator: torch.Generator | None = None,
     rate = arrival_rate(cfg.mix, cfg.congestion) * cfg.arrival_scale
     gaps = torch.empty((n,), device=gdev).exponential_(generator=g)
     arrival = torch.cumsum(gaps * (1000.0 / rate), 0)
+    if sched is not None:
+        sched = to_device(sched, gdev)
+        arrival = warp_arrivals(arrival, sched)
 
-    mix = torch.tensor(MIXES[cfg.mix], dtype=torch.float32, device=gdev)
-    bucket = torch.multinomial(mix, n, replacement=True, generator=g).to(
-        torch.int32)
+    if sched is not None and sched.mix_varies:
+        bucket = _sample_bucket_per_request(
+            sched.mix_w[phase_index(sched, arrival).long()], g)
+    else:
+        mix = torch.tensor(MIXES[cfg.mix], dtype=torch.float32, device=gdev)
+        bucket = torch.multinomial(mix, n, replacement=True,
+                                   generator=g).to(torch.int32)
     bt = BUCKET_TOKENS.to(gdev)
     lo = bt[bucket.long(), 0]
     hi = bt[bucket.long(), 1]

@@ -27,7 +27,14 @@ from repro_torch.core.policy import strategy
 from repro_torch.models import Model, init_model
 from repro_torch.serving import BlackBoxProvider
 from repro_torch.serving import generate as serve_generate
-from repro_torch.sim import SimConfig, WorkloadConfig, generate, run_cell, run_sim
+from repro_torch.sim import (
+    SimConfig,
+    WorkloadConfig,
+    generate,
+    run_cell,
+    run_scenario_cell,
+    run_sim,
+)
 from repro_torch.sim.provider import default_physics
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,6 +86,9 @@ def test_other_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError):
         run_sim(strategy("final_adrr_olc"), batch, jitter, default_physics(),
                 SimConfig(n_ticks=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_scenario_cell(strategy("final_adrr_olc"), "storm", seeds=1,
+                          n_requests=8, sim_cfg=SimConfig(n_ticks=2))
 
 
 def test_serving_entry_points_raise_without_cuda(no_cuda):

@@ -33,6 +33,7 @@ from repro.sim.workload import generate as ref_generate
 from repro_torch.bridge import from_numpy, to_numpy
 from repro_torch.core.policy import strategy
 from repro_torch.core.types import COMPLETED, INFLIGHT, PENDING
+from repro_torch.sim.provider import no_dynamics
 from repro_torch.sim import (
     SimConfig,
     WorkloadConfig,
@@ -241,11 +242,18 @@ class TestRunner:
                      seeds=1, device="cpu")
 
     def test_dynamics_and_fleet_are_not_ported_yet(self):
+        """The dynamics half of the simulator is ported (its parity is
+        `test_torch_scenarios.py`); the fleet axis still raises, and
+        both together are refused as in the reference."""
         batch, jitter = generate(WorkloadConfig(n_requests=8),
                                  device="cpu")
-        for kw in (dict(dynamics=object()), dict(fleet=object())):
-            with pytest.raises(NotImplementedError):
-                run_sim(strategy("final_adrr_olc"), batch, jitter,
-                        default_physics(), SimConfig(n_ticks=1),
-                        device="cpu", **kw)
+        run = functools.partial(run_sim, strategy("final_adrr_olc"), batch,
+                                jitter, default_physics(),
+                                SimConfig(n_ticks=1), device="cpu")
+        with pytest.raises(NotImplementedError, match=r"A5\(b\)"):
+            run(fleet=object())
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            run(dynamics=no_dynamics(), fleet=object())
+        final = run(dynamics=no_dynamics())
+        assert final.req.status.shape == (8,)
 
