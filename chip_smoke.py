@@ -13,8 +13,9 @@ models: the dense StableLM-2-1.6B, whose prefill runs `flash_attention`
 and whose every decode step runs `decode_attention`; the state-space
 Mamba2-780M, whose prefill runs `ssd_intra` in every layer; and the
 hybrid Hymba-1.5B, which runs all three.  The scheduler also runs the
-paper tables' policy variants and the nonstationary provider
-(brownouts, token buckets, phased arrivals), card against CPU and at
+paper tables' policy variants, the nonstationary provider (brownouts,
+token buckets, phased arrivals) and a fleet of four endpoints (routing,
+failover with requeue, per-endpoint buckets), card against CPU and at
 the scale run's size.  Each path is driven with every
 kernel's launch count set to 0 just before it and read just after; the
 kernels line carries each kernel's launches summed over the paths.
@@ -46,13 +47,16 @@ Phases:
      it);
   4. paper cell: `run_cell` on the card and on the CPU with the same
      inputs — equal decision traces, equal terminal statuses, metrics
-     within the tests' tolerance (`CELL_TOL`);
+     within the tests' tolerance (`CELL_TOL`).  Here and in phases
+     5a, 5b and 5d the CPU run goes on in a spawned process while the
+     card runs (`card_and_cpu`), which is joined before the phase ends;
   5. scale: the windowed run at N = 100,000, W = 4096, B = 16 on the
      card — `sched_score_topb` launched (K+1) times a tick, every request
      accounted for on every tick and after the drain, `sched_compact_topb`
      held against its plain version on the run's own slot pool at
      mid-run, and a window of ticks traced with `torch.profiler` for the
-     device's busy time and idle share;
+     device's busy time and idle share (read from the trace's device
+     events, `device_activity`);
  5a. tables: the paper tables' policy variants, each on the card and on
      the CPU with the same inputs (N = 160, W = 256, B = 4, seed 0, 1,000
      ticks): `with_information(final_adrr_olc, "no_info")` with no_info
@@ -76,6 +80,24 @@ Phases:
      at the inflight count it saw and the tick's comfort scale, slower
      inside the brownout at equal inflight, the phase counts, and a
      window of ticks inside the brownout traced for the idle share;
+ 5d. fleet: `fleet_failover` through `run_scenario_cell` (P = 4,
+     endpoint 0 down over 0.35-0.65 of the arrival span) and a fleet
+     with every mechanism on (speeds 0.5, 1, 1, 2, the same failure, a
+     0.3 brownout on endpoint 1 over 0.5-0.85, a per-endpoint bucket of
+     0.4 grant/s with burst 6), N = 160 at 4x the rate, W = 256, B = 4,
+     the arrival span plus 800 ticks, on the card and on the CPU: equal
+     decisions, severity bits, statuses, endpoints, fleet state
+     (inflight, requeues, bounces, bucket bits) and phase metrics, (K+1)
+     `sched_score_topb` launches a tick (the route term as its fifth
+     feature row), requeues on endpoint 0 only, bounces in the second
+     cell; the first cell's recovery (phase 2's completion rate over
+     phase 0's) printed;
+ 5e. fleet_scale: `fleet_failover` at the scale run's size (N =
+     100,000, W = 4096, B = 16, K = 2, P = 4, 2,000 ticks, untraced):
+     (K+1) launches a tick, requeues on endpoint 0 only, no request in
+     flight on endpoint 0 at a tick inside its fail window, the fleet's
+     inflight counts equal to a recount by endpoint on the last tick,
+     completions on endpoints 1-3 inside the window, ticks/s;
   6. attention_kernels: `flash_attention` and `decode_attention` against
      their plain versions on the card at StableLM-2-1.6B's geometry
      (H = KV = 32, hd = 64, bf16; flash also at B = 4 and with fewer
@@ -132,6 +154,7 @@ import dataclasses
 import itertools
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -201,9 +224,11 @@ def main() -> None:
     tables = timed("tables", phase_tables)
     scenarios = timed("scenarios", phase_scenarios)
     scenario_scale = timed("scenario_scale", phase_scenario_scale)
-    # the scheduler's main-path launches: the scale run and these three
-    kernels["sched_score_topb"]["launches"] += (tables + scenarios
-                                                + scenario_scale)
+    fleet = timed("fleet", phase_fleet)
+    fleet_scale = timed("fleet_scale", phase_fleet_scale)
+    # the scheduler's main-path launches: the scale run and these five
+    kernels["sched_score_topb"]["launches"] += (
+        tables + scenarios + scenario_scale + fleet + fleet_scale)
     kernels.update(timed("attention_kernels", phase_attention_kernels))
     served = timed("serve", phase_serve, kernels)
     kernels.update(timed("ssd_kernel", phase_ssd_kernel, ssd_per_call))
@@ -217,8 +242,9 @@ def main() -> None:
                    "sched_compact_topb", "flash_attention",
                    "decode_attention", "ssd_intra")])
     check(cell_launches > 0 and scale > 0 and tables > 0 and scenarios > 0
-          and scenario_scale > 0 and served > 0 and served_ssm > 0
-          and served_hybrid > 0, "main path launched no kernel")
+          and scenario_scale > 0 and fleet > 0 and fleet_scale > 0
+          and served > 0 and served_ssm > 0 and served_hybrid > 0,
+          "main path launched no kernel")
     emit(ok=True, device={"platform": "gpu", "kind": kind,
                           "count": torch.cuda.device_count()})
 
@@ -642,22 +668,67 @@ def unfused_compact_topb(torch, ops, ref, pool, b):
 CELL_TOL = dict(rtol=1e-5, atol=1e-6)   # metrics, card against CPU
 
 
-def card_and_cpu(torch, run):
-    """`run(device)` on the card, then on the CPU: each result with its
-    seconds and, for the card, the `sched_score_topb` launches (counted
-    from 0 just before the run)."""
+def _as_torch(torch, obj):
+    """numpy leaves (as a CPU job sends them back) -> CPU tensors."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj)
+    if hasattr(obj, "_fields"):
+        return type(obj)(*(_as_torch(torch, v) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_as_torch(torch, v) for v in obj)
+    return obj
+
+
+def _cpu_job(conn, job, args):
+    """A spawned process's body: `job(torch, "cpu", *args)` on one
+    thread, its result sent back with numpy leaves and its seconds."""
+    import torch
+
+    from repro_torch.bridge import to_numpy
+
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        out = job(torch, "cpu", *args)
+        conn.send(("ok", to_numpy(out), time.perf_counter() - t0))
+    except BaseException as e:  # the parent raises it: report, not hang
+        conn.send(("error", repr(e), 0.0))
+    finally:
+        conn.close()
+
+
+def card_and_cpu(torch, job, *args):
+    """`job(torch, device, *args)` on the card and, at the same time in a
+    spawned process of its own, on the CPU: each result with its seconds
+    and, for the card, the `sched_score_topb` launches (counted from 0
+    just before the run; the CPU runs the plain version).  The host is
+    what paces both runs, and the machine has cores to spare."""
     from repro_torch.kernels.sched_score import ops
 
-    res = {}
-    for d in ("cuda", "cpu"):
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_cpu_job, args=(send, job, args))
+    proc.start()
+    send.close()
+    try:
         ops.reset_launches()
         t0 = time.perf_counter()
-        out = run(d)
-        if d == "cuda":
-            torch.cuda.synchronize()
-        res[d] = (out, time.perf_counter() - t0,
-                  ops.LAUNCHES["sched_score_topb"])
-    return res["cuda"], res["cpu"]
+        card = job(torch, "cuda", *args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.LAUNCHES["sched_score_topb"]
+        try:
+            status, out, cpu_secs = recv.recv()
+        except EOFError:
+            status, out, cpu_secs = "error", "the CPU process died", 0.0
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        recv.close()
+    check(status == "ok", f"{job.__name__}{args}: the CPU run failed: {out}")
+    return (card, secs, launches), (_as_torch(torch, out), cpu_secs, None)
 
 
 def same_run(torch, what, card, cpu):
@@ -682,27 +753,30 @@ def same_run(torch, what, card, cpu):
               f"{what}: metric {f} {a} vs {b}")
 
 
-def phase_paper_cell(torch, dev):
+PAPER_TICKS = 14000
+
+
+def paper_cell_run(torch, d):
     from repro_torch.core.policy import strategy
     from repro_torch.sim import SimConfig, WorkloadConfig, run_cell
 
     wl = WorkloadConfig(n_requests=160, mix="balanced", congestion="high")
-    cfg = SimConfig(n_ticks=14000, k_slots=4, window=256)
+    cfg = SimConfig(n_ticks=PAPER_TICKS, k_slots=4, window=256)
+    metrics, runs = run_cell(strategy("final_adrr_olc"), wl, seeds=1,
+                             sim_cfg=cfg, device=d, collect_decisions=True)
+    return metrics, runs[0]
 
-    def run(d):
-        metrics, runs = run_cell(strategy("final_adrr_olc"), wl, seeds=1,
-                                 sim_cfg=cfg, device=d,
-                                 collect_decisions=True)
-        return metrics, runs[0]
 
-    (card, secs_g, launches), (cpu, secs_c, _) = card_and_cpu(torch, run)
+def phase_paper_cell(torch, dev):
+    (card, secs_g, launches), (cpu, secs_c, _) = card_and_cpu(
+        torch, paper_cell_run)
     k = 2
-    check(launches == (k + 1) * cfg.n_ticks,
+    check(launches == (k + 1) * PAPER_TICKS,
           f"paper cell: {launches} sched_score_topb launches, want "
-          f"{(k + 1) * cfg.n_ticks}")
+          f"{(k + 1) * PAPER_TICKS}")
     same_run(torch, "paper cell", card, cpu)
     mg = card[0]
-    emit(phase="paper_cell", n_requests=160, n_ticks=cfg.n_ticks, window=256,
+    emit(phase="paper_cell", n_requests=160, n_ticks=PAPER_TICKS, window=256,
          k_slots=4, decisions_equal=True, statuses_equal=True,
          sched_score_topb_launches=launches,
          short_p95_ms=float(mg.short_p95_ms[0]),
@@ -710,7 +784,7 @@ def phase_paper_cell(torch, dev):
          satisfaction=float(mg.satisfaction[0]),
          goodput_rps=float(mg.goodput_rps[0]),
          card_seconds=secs_g, cpu_seconds=secs_c,
-         card_ticks_per_s=cfg.n_ticks / secs_g)
+         card_ticks_per_s=PAPER_TICKS / secs_g)
     return launches
 
 
@@ -721,18 +795,40 @@ def phase_paper_cell(torch, dev):
 TRACE_FROM, TRACE_TICKS = 200, 40   # the scale run's traced window
 
 
+def device_activity(torch, prof):
+    """(busy µs, device ops, µs by name) of a finished profile: its device
+    events (kernels, memcpy, memset) read straight from the trace's
+    events, without the per-op tables `key_averages` builds, which cost
+    tens of seconds a window (`tools/trace_activities.py` holds the two
+    readings against each other)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_us, n_ops, per_name = 0.0, 0, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        us = e.duration_ns() / 1e3
+        if us > 0:
+            busy_us += us
+            n_ops += 1
+            per_name[e.name()] = per_name.get(e.name(), 0.0) + us
+    return busy_us, n_ops, per_name
+
+
 class TickTrace:
     """`torch.profiler` over ticks [start, start + ticks) of a run, driven
     from the run's `on_tick`; `fields` reads the device's busy time and
-    idle share a tick from the trace (device events only: kernels,
-    memcpy, memset; the CPU ops that launched them carry the same time
-    again)."""
+    idle share a tick from the trace (`device_activity`).  The profiler
+    records host and device activity; `cpu=False` records the device's
+    only, which lost device events in some runs
+    (`tools/trace_activities.py`)."""
 
-    def __init__(self, torch, start, ticks=TRACE_TICKS):
+    def __init__(self, torch, start, ticks=TRACE_TICKS, cpu=True):
         self.torch, self.start, self.ticks = torch, start, ticks
-        self.prof = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
+        self.cpu = cpu
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        if cpu:
+            acts.insert(0, torch.profiler.ProfilerActivity.CPU)
+        self.prof = torch.profiler.profile(activities=acts)
         self.clock = {}
 
     def tick(self, t):
@@ -750,14 +846,10 @@ class TickTrace:
 
     def fields(self, what, secs, n_ticks):
         """The run's untraced rate and the traced window's figures."""
-        busy_us, n_device_ops, per_name = 0.0, 0, {}
-        for e in self.prof.key_averages():
-            us = float(getattr(e, "self_device_time_total", None)
-                       or getattr(e, "self_cuda_time_total", 0.0))
-            if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-                busy_us += us
-                n_device_ops += e.count
-                per_name[e.key] = per_name.get(e.key, 0.0) + us
+        t_read = time.perf_counter()
+        busy_us, n_device_ops, per_name = device_activity(self.torch,
+                                                          self.prof)
+        read_s = time.perf_counter() - t_read
         check(n_device_ops > 0, f"{what}: the trace shows no device work")
         clock, n = self.clock, self.ticks
         wall_ms = (clock["t1"] - clock["t0"]) * 1e3 / n
@@ -767,10 +859,13 @@ class TickTrace:
         return dict(
             ticks_per_s_untraced=(n_ticks - n) / untraced_s,
             traced_ticks=n, traced_from=self.start,
+            traced_activities="cpu+cuda" if self.cpu else "cuda",
             traced_wall_ms_per_tick=wall_ms,
             traced_device_busy_ms_per_tick=busy_ms,
             traced_device_idle_share=1.0 - busy_ms / wall_ms,
             traced_device_ops_per_tick=n_device_ops / n,
+            trace_stop_seconds=clock["exit"] - clock["t1"],
+            trace_read_seconds=read_s,
             traced_top_device_us_per_tick=[
                 [name[:60], us / n] for name, us in top])
 
@@ -931,25 +1026,28 @@ def table_cells():
     }
 
 
+def table_run(torch, d, name):
+    from repro_torch.sim import SimConfig, run_cell
+
+    policy, wl, phys = table_cells()[name]
+    cfg = SimConfig(n_ticks=TABLE_TICKS, k_slots=4, window=256)
+    metrics, runs = run_cell(policy, wl, seeds=1, phys=phys, sim_cfg=cfg,
+                             device=d, collect_decisions=True)
+    return metrics, runs[0]
+
+
 def phase_tables(torch, dev):
     from repro_torch.core.overload import ADMIT, DEFER, REJECT
     from repro_torch.core.policy import n_classes
-    from repro_torch.sim import SimConfig, run_cell
 
-    cfg = SimConfig(n_ticks=TABLE_TICKS, k_slots=4, window=256)
     total, cells = 0, {}
-    for name, (policy, wl, phys) in table_cells().items():
-        def run(d):
-            metrics, runs = run_cell(policy, wl, seeds=1, phys=phys,
-                                     sim_cfg=cfg, device=d,
-                                     collect_decisions=True)
-            return metrics, runs[0]
-
-        (card, secs_g, launches), (cpu, secs_c, _) = card_and_cpu(torch, run)
+    for name, (policy, _, _) in table_cells().items():
+        (card, secs_g, launches), (cpu, secs_c, _) = card_and_cpu(
+            torch, table_run, name)
         k = n_classes(policy)
-        check(launches == (k + 1) * cfg.n_ticks,
+        check(launches == (k + 1) * TABLE_TICKS,
               f"tables {name}: {launches} sched_score_topb launches, want "
-              f"{(k + 1) * cfg.n_ticks}")
+              f"{(k + 1) * TABLE_TICKS}")
         same_run(torch, f"tables {name}", card, cpu)
         total += launches
         m, (_, (actions, _, _)) = card
@@ -963,7 +1061,7 @@ def phase_tables(torch, dev):
             completion_rate=float(m.completion_rate[0]),
             short_p95_ms=float(m.short_p95_ms[0]),
             satisfaction=float(m.satisfaction[0]))
-    emit(phase="tables", n_requests=160, n_ticks=cfg.n_ticks, window=256,
+    emit(phase="tables", n_requests=160, n_ticks=TABLE_TICKS, window=256,
          k_slots=4, decisions_equal=True, statuses_equal=True,
          sched_score_topb_launches=total, cells=cells)
     return total
@@ -976,27 +1074,38 @@ def phase_tables(torch, dev):
 SCENARIO_DRAIN_TICKS = 800
 
 
-def phase_scenarios(torch, dev):
+def scenario_cfg(sc, n, scale):
+    """The N = 160 cells' horizon: the arrival span plus the drain."""
+    from repro_torch.sim import SimConfig
+    from repro_torch.sim.scenarios import arrival_span_ms
+
+    return SimConfig(n_ticks=math.ceil(arrival_span_ms(sc, n, scale) / 25.0)
+                     + SCENARIO_DRAIN_TICKS, k_slots=4, window=256)
+
+
+def scenario_run(torch, d, sc, n, scale):
+    """`sc` through `run_scenario_cell` at N = n, `arrival_scale` scale:
+    ((metrics, (final, trace)), phase metrics)."""
     from repro_torch.core.policy import strategy
-    from repro_torch.sim import SimConfig, run_scenario_cell
-    from repro_torch.sim.scenarios import arrival_span_ms, get_scenario
+    from repro_torch.sim import run_scenario_cell
+
+    m, pm, runs = run_scenario_cell(
+        strategy("final_adrr_olc"), sc, seeds=1, n_requests=n,
+        sim_cfg=scenario_cfg(sc, n, scale), arrival_scale=scale, device=d,
+        collect_decisions=True)
+    return (m, runs[0]), pm
+
+
+def phase_scenarios(torch, dev):
+    from repro_torch.sim.scenarios import get_scenario
 
     n, scale, k = 160, 4.0, 2
     total, rows = 0, {}
     for name in ("storm", "rate_crunch"):
         sc = get_scenario(name)
-        cfg = SimConfig(n_ticks=math.ceil(arrival_span_ms(sc, n, scale) / 25.0)
-                        + SCENARIO_DRAIN_TICKS, k_slots=4, window=256)
-
-        def run(d):
-            m, pm, runs = run_scenario_cell(
-                strategy("final_adrr_olc"), sc, seeds=1, n_requests=n,
-                sim_cfg=cfg, arrival_scale=scale, device=d,
-                collect_decisions=True)
-            return (m, runs[0]), pm
-
+        cfg = scenario_cfg(sc, n, scale)
         ((card, pm_g), secs_g, launches), ((cpu, pm_c), secs_c, _) = \
-            card_and_cpu(torch, run)
+            card_and_cpu(torch, scenario_run, sc, n, scale)
         check(launches == (k + 1) * cfg.n_ticks,
               f"scenarios {name}: {launches} sched_score_topb launches, "
               f"want {(k + 1) * cfg.n_ticks}")
@@ -1146,6 +1255,191 @@ def phase_scenario_scale(torch, dev):
          phase_throttled=pm.n_throttled.tolist(),
          brownout=brownout,
          **trace.fields("scenario_scale", secs, cfg.n_ticks))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 5d. the fleet axis, card against CPU
+# ---------------------------------------------------------------------------
+
+def fleet_cells():
+    """name -> Scenario: the registry's `fleet_failover`, and the same
+    traffic on a fleet with every mechanism on, widened as the
+    reference's `benchmarks/fleet_sweep.py` widens its fleet."""
+    from repro_torch.sim.scenarios import FleetSpec, get_scenario
+
+    base = get_scenario("fleet_failover")
+    return {
+        "fleet_failover": base,
+        "fleet_all_on": base._replace(name="fleet_all_on", fleet=FleetSpec(
+            p=4, speed_mult=(0.5, 1.0, 1.0, 2.0),
+            fail_windows=((0, 0.35, 0.65),),
+            brownouts=((1, 0.5, 0.85, 0.3),), tb_rate_rps=0.4,
+            tb_burst=6.0)),
+    }
+
+
+def recovery(pm):
+    """Phase 2's completion rate over phase 0's (the arrivals after the
+    fail window against those before it), as the reference's
+    `benchmarks/fleet_sweep.py` `_recovery` defines it."""
+    arrived = pm.n_arrived[0].double().cpu()
+    completed = pm.n_completed[0].double().cpu()
+    pre = float(completed[0] / max(float(arrived[0]), 1.0))
+    post = float(completed[-1] / max(float(arrived[-1]), 1.0))
+    return post / pre if pre > 0 else float("nan")
+
+
+def phase_fleet(torch, dev):
+    n, scale, k = 160, 4.0, 2
+    total, rows = 0, {}
+    for name, sc in fleet_cells().items():
+        cfg = scenario_cfg(sc, n, scale)
+        ((card, pm_g), secs_g, launches), ((cpu, pm_c), secs_c, _) = \
+            card_and_cpu(torch, scenario_run, sc, n, scale)
+        check(launches == (k + 1) * cfg.n_ticks,
+              f"fleet {name}: {launches} sched_score_topb launches, want "
+              f"{(k + 1) * cfg.n_ticks}")
+        same_run(torch, f"fleet {name}", card, cpu)
+        for f in pm_g._fields:
+            a, b = getattr(pm_g, f).cpu().numpy(), getattr(pm_c, f).numpy()
+            check(np.array_equal(a, b, equal_nan=True),
+                  f"fleet {name}: phase metric {f} {a} vs {b}")
+        fg, fc = card[1][0], cpu[1][0]
+        check(torch.equal(fg.req.endpoint.cpu(), fc.req.endpoint),
+              f"fleet {name}: endpoints differ between card and CPU")
+        for f in ("inflight", "n_requeued", "n_throttled", "tb_tokens"):
+            a, b = getattr(fg.fleet, f).cpu(), getattr(fc.fleet, f)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            check(torch.equal(a, b), f"fleet {name}: FleetState.{f} differs "
+                  f"between card and CPU")
+        requeued = fg.fleet.n_requeued.cpu()
+        throttled = fg.fleet.n_throttled.cpu()
+        check(int(requeued[0]) > 0 and int(requeued[1:].sum()) == 0,
+              f"fleet {name}: requeues {requeued.tolist()}, want them on "
+              f"endpoint 0 only")
+        if name == "fleet_all_on":
+            check(int(throttled.sum()) > 0,
+                  f"fleet {name}: the per-endpoint buckets never bounced")
+        status = fg.req.status.cpu()
+        sent = torch.isfinite(fg.req.submit_ms.cpu())
+        total += launches
+        rows[name] = dict(
+            n_ticks=cfg.n_ticks, launches=launches, card_seconds=secs_g,
+            cpu_seconds=secs_c, card_ticks_per_s=cfg.n_ticks / secs_g,
+            n_requeued=requeued.tolist(), n_throttled=throttled.tolist(),
+            admitted_by_endpoint=torch.bincount(
+                fg.req.endpoint.cpu()[sent].long(), minlength=4).tolist(),
+            status_counts=torch.bincount(status.long(),
+                                         minlength=5).tolist(),
+            completion_rate=float(card[0].completion_rate[0]),
+            recovery=recovery(pm_g),
+            phase_arrived=pm_g.n_arrived[0].tolist(),
+            phase_completed=pm_g.n_completed[0].tolist(),
+            phase_throttled=pm_g.n_throttled[0].tolist())
+    emit(phase="fleet", n_requests=n, arrival_scale=scale, window=256,
+         k_slots=4, endpoints=4, decisions_equal=True, statuses_equal=True,
+         endpoints_equal=True, fleet_state_equal=True,
+         phase_metrics_equal=True, sched_score_topb_launches=total,
+         cells=rows)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 5e. fleet_failover at the scale run's size, on the card
+# ---------------------------------------------------------------------------
+
+# N, W, B and ticks of the scale-sized fleet: the scale run's
+FLEET_SCALE = (100_000, 4096, 16, 2000)
+
+
+def phase_fleet_scale(torch, dev):
+    from repro_torch.core.policy import strategy
+    from repro_torch.core.types import COMPLETED, INFLIGHT, PENDING
+    from repro_torch.kernels.sched_score import ops
+    from repro_torch.sim import SimConfig, default_physics, generate, run_sim
+    from repro_torch.sim.scenarios import build, build_fleet, get_scenario
+
+    (n, w, b, n_ticks), k = FLEET_SCALE, 2
+    cfg = SimConfig(n_ticks=n_ticks, k_slots=b, window=w)
+    sc = get_scenario("fleet_failover")
+    wl, sched, dyn, _ = build(sc, n, cfg.n_ticks, cfg.dt_ms,
+                              limiter_classes=k, arrival_scale=n / 160)
+    check(dyn is None, "fleet_scale: a fleet scenario built provider dynamics")
+    phys = default_physics()
+    fleet = build_fleet(sc, phys, cfg.n_ticks, cfg.dt_ms, n, k, n / 160)
+    p = fleet.phys.base_ms.shape[0]
+    down = (fleet.dyn.avail[:, 0] < 0.5).nonzero().flatten()
+    check(down.numel() > 0, "fleet_scale: the fail window misses the run")
+    first, last = int(down[0]), int(down[-1])
+    probe_t = (first + last) // 2
+    batch, jitter = generate(wl, torch.Generator().manual_seed(0),
+                             device=dev, sched=sched)
+    probe = {}
+
+    def by_endpoint(state):
+        live = state.req.status == INFLIGHT
+        return torch.bincount(state.req.endpoint[live].long(), minlength=p)
+
+    def on_tick(t, state, win):
+        # device work only: the counts are read after the run
+        if t == probe_t:
+            probe["ep0"] = ((state.req.status == INFLIGHT)
+                            & (state.req.endpoint == 0)).sum()
+            probe["ep0_fleet"] = state.fleet.inflight[0].clone()
+        if t == cfg.n_ticks - 1:
+            probe["last"] = (state.fleet.inflight.clone(), by_endpoint(state))
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = run_sim(strategy("final_adrr_olc"), batch, jitter, phys, cfg,
+                    fleet=fleet, device=dev, on_tick=on_tick)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.LAUNCHES["sched_score_topb"]
+    check(launches == (k + 1) * cfg.n_ticks,
+          f"fleet_scale: {launches} sched_score_topb launches, want "
+          f"{(k + 1) * cfg.n_ticks}")
+    requeued = final.fleet.n_requeued.cpu()
+    check(int(requeued[0]) > 0 and int(requeued[1:].sum()) == 0,
+          f"fleet_scale: requeues {requeued.tolist()}, want them on "
+          f"endpoint 0 only")
+    check(int(probe["ep0"]) == 0 and int(probe["ep0_fleet"]) == 0,
+          f"fleet_scale: {int(probe['ep0'])} requests in flight on the "
+          f"down endpoint 0 at tick {probe_t}")
+    infl_last, recount_last = (x.cpu() for x in probe["last"])
+    check(torch.equal(infl_last, recount_last.to(torch.int32)),
+          f"fleet_scale: FleetState.inflight {infl_last.tolist()} against "
+          f"a recount {recount_last.tolist()} on the last tick")
+    check(torch.equal(final.fleet.inflight.cpu(),
+                      by_endpoint(final).cpu().to(torch.int32)),
+          "fleet_scale: FleetState.inflight differs from a recount after "
+          "the drain")
+    counts = torch.bincount(final.req.status.long(), minlength=5).tolist()
+    check(counts[PENDING] == 0 and counts[INFLIGHT] == 0,
+          f"fleet_scale: requests left live after the drain: {counts}")
+    window_ms = ((first + 1) * cfg.dt_ms, cfg.n_ticks * cfg.dt_ms)
+    fin = final.req.finish_ms
+    in_window = ((final.req.status == COMPLETED) & (fin >= window_ms[0])
+                 & (fin <= window_ms[1]))
+    done_in_window = torch.bincount(final.req.endpoint[in_window].long(),
+                                    minlength=p).cpu()
+    check(bool((done_in_window[1:] > 0).all()),
+          f"fleet_scale: completions inside the fail window by endpoint "
+          f"{done_in_window.tolist()}")
+    sent = torch.isfinite(final.req.submit_ms)
+    emit(phase="fleet_scale", scenario="fleet_failover", n_requests=n,
+         window=w, k_slots=b, classes=k, endpoints=p, n_ticks=cfg.n_ticks,
+         arrival_scale=n / 160, seconds=secs, ticks_per_s=cfg.n_ticks / secs,
+         sched_score_topb_launches=launches, fail_ticks=[first, last],
+         probe_tick=probe_t, n_requeued=requeued.tolist(),
+         completed_in_window_by_endpoint=done_in_window.tolist(),
+         admitted_by_endpoint=torch.bincount(
+             final.req.endpoint[sent].long(), minlength=p).tolist(),
+         status_counts=counts,
+         n_throttles=int(final.req.n_throttles.sum()))
     return launches
 
 
@@ -1918,14 +2212,7 @@ def trace_decode(torch, model, decode_step, prefill, sc, prompt, dev):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
     prof.stop()
-    busy_us, n_ops, per_name = 0.0, 0, {}
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            busy_us += us
-            n_ops += e.count
-            per_name[e.key] = per_name.get(e.key, 0.0) + us
+    busy_us, n_ops, per_name = device_activity(torch, prof)
     check(n_ops > 0, "serve: the decode trace shows no device work")
     busy_ms = busy_us / 1e3 / TRACE_STEPS
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]

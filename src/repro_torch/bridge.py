@@ -2,14 +2,15 @@
 
 `from_numpy(obj, device)` turns the reference's NamedTuples (the
 `RequestBatch`, the jitter vector, `PolicyConfig`, `ProviderPhysics`,
-`ProviderDynamics`, `ArrivalSchedule`, `SimState`, `WindowCarry`),
+`ProviderDynamics`, `ArrivalSchedule`, `SimState`, `WindowCarry`, and
+the fleet's `Fleet`, `FleetPhysics`, `FleetDynamics`, `FleetState`),
 given with numpy (or any array-like) leaves, into this package's types
 on `device`; None leaves (a mechanism that is off) and Python bools
 (`ArrivalSchedule.mix_varies`) stay as they are.  Types are matched by
-field name (`_fields`), not by importing the reference: the port type
-whose fields all appear in the object wins, as long as every field it
-lacks is None there (fleet-only fields such as `RequestState.endpoint`
-and `SimState.fleet`).  Dtypes are kept exactly: float32, int32 and
+field name (`_fields`), not by importing the reference: among the port
+types whose fields all appear in the object, and which lack only fields
+that are None there, the one of the same class name wins, else the one
+with the most fields (`FleetPhysics` has `ProviderPhysics`'s fields).  Dtypes are kept exactly: float32, int32 and
 bool; anything else raises.  `PolicyConfig.alloc_mode` becomes a
 Python int.  `to_numpy` is the inverse, for the tests.
 
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.types import (
+    FleetState,
     ProviderState,
     RequestBatch,
     RequestState,
@@ -37,12 +39,19 @@ from repro_torch.core.types import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.sim.provider import ProviderDynamics, ProviderPhysics
+from repro_torch.sim.provider import (
+    Fleet,
+    FleetDynamics,
+    FleetPhysics,
+    ProviderDynamics,
+    ProviderPhysics,
+)
 from repro_torch.sim.workload import ArrivalSchedule
 
 PORT_TYPES = (RequestBatch, RequestState, SchedState, ProviderState,
               SimState, WindowCarry, PolicyConfig, ProviderPhysics,
-              ProviderDynamics, ArrivalSchedule)
+              ProviderDynamics, ArrivalSchedule, Fleet, FleetPhysics,
+              FleetDynamics, FleetState)
 _DTYPES = (np.dtype(np.float32), np.dtype(np.int32), np.dtype(np.bool_))
 
 
@@ -55,6 +64,8 @@ def _match(obj):
             continue
         if any(getattr(obj, f) is not None for f in fields - own):
             continue
+        if t.__name__ == type(obj).__name__:
+            return t
         if best is None or len(own) > len(best._fields):
             best = t
     if best is None:

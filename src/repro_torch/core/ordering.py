@@ -21,6 +21,12 @@ Two backends:
 
 Masked lanes score NEG on the kernel path and -inf (FIFO) on the torch
 path; both rank after every eligible lane in index order.
+
+In fleet mode `route` ((N,) float32, `routing.route_requests`) is each
+request's predicted completion cost at its best endpoint, in seconds.
+Scored classes subtract it as a fourth term, after the base sum; on the
+kernel path it streams as the fifth feature row, which the FIFO weight
+row zeroes, so FIFO ranking never sees it.
 """
 from __future__ import annotations
 
@@ -53,9 +59,11 @@ def _wait_and_urgency(batch: RequestBatch, now_ms):
     return wait, urgency
 
 
-def order_scores(batch: RequestBatch, now_ms, cfg: PolicyConfig):
+def order_scores(batch: RequestBatch, now_ms, cfg: PolicyConfig,
+                 route=None):
     """Paper scoring rule over every request (mask applied by caller);
-    each term rounds before the sum, in the kernel's association."""
+    each term rounds before the sum, in the kernel's association.  The
+    fleet `route` term is subtracted last: `((t0 - t1) + t2) - t3`."""
     wait, urgency = _wait_and_urgency(batch, now_ms)
     cost = torch.clamp(batch.p50, min=1.0)
     terms = pinned((
@@ -63,7 +71,10 @@ def order_scores(batch: RequestBatch, now_ms, cfg: PolicyConfig):
         cfg.ord_w_size * (cost / cfg.ord_ref_tokens),
         cfg.ord_w_urg * urgency,
     ))
-    return (terms[0] - terms[1]) + terms[2]
+    score = (terms[0] - terms[1]) + terms[2]
+    if route is None:
+        return score
+    return score - pinned(cfg.ord_w_route * route)
 
 
 def _rank_desc(x: torch.Tensor, b: int) -> torch.Tensor:
@@ -73,9 +84,10 @@ def _rank_desc(x: torch.Tensor, b: int) -> torch.Tensor:
     return order[..., :b].to(torch.int32)
 
 
-def _fifo_weights(device) -> torch.Tensor:
-    w = torch.zeros((4,), dtype=torch.float32, device=device)
-    w[0::3] = 1.0  # [1, 0, 0, 1]: score == -arrival_ms exactly
+def _fifo_weights(device, with_route: bool = False) -> torch.Tensor:
+    w = torch.zeros((5 if with_route else 4,), dtype=torch.float32,
+                    device=device)
+    w[0:4:3] = 1.0  # [1, 0, 0, 1(, 0)]: score == -arrival_ms exactly
     return w
 
 
@@ -97,14 +109,19 @@ def rank_fifo(batch: RequestBatch, mask, b: int, backend: str = "torch"):
     return _rank_desc(-key, b), n_elig
 
 
-def _select_top_b_kernel(batch, cls_mask, now_ms, cfg, b: int):
-    """(K, L) ranked candidates, one kernel launch per class."""
+def _select_top_b_kernel(batch, cls_mask, now_ms, cfg, b: int, route=None):
+    """(K, L) ranked candidates, one kernel launch per class.  With
+    `route` the weight rows grow a fifth entry: `ord_w_route` for a
+    scored class, 0 for FIFO."""
     wait, urgency = _wait_and_urgency(batch, now_ms)
     fifo_key = -batch.arrival_ms
     cost = batch.p50  # the kernel applies the max(cost, 1) clamp itself
-    w_scored = torch.stack([cfg.ord_w_wait, cfg.ord_w_size, cfg.ord_w_urg,
-                            cfg.ord_ref_tokens])
-    w_fifo = _fifo_weights(wait.device)
+    scored = [cfg.ord_w_wait, cfg.ord_w_size, cfg.ord_w_urg,
+              cfg.ord_ref_tokens]
+    if route is not None:
+        scored.append(cfg.ord_w_route)
+    w_scored = torch.stack(scored)
+    w_fifo = _fifo_weights(wait.device, with_route=route is not None)
     rows = []
     for c in range(n_classes(cfg)):
         use_score = cfg.ord_scored[c] > 0
@@ -112,7 +129,7 @@ def _select_top_b_kernel(batch, cls_mask, now_ms, cfg, b: int):
             torch.where(use_score, wait, fifo_key),
             torch.where(use_score, cost, 1.0),
             torch.where(use_score, urgency, 0.0),
-            cls_mask[c], torch.where(use_score, w_scored, w_fifo), b)
+            cls_mask[c], torch.where(use_score, w_scored, w_fifo), b, route)
         rows.append(idx)
     return torch.stack(rows)
 
@@ -124,21 +141,24 @@ def select_top_b(
     cfg: PolicyConfig,
     b: int,
     backend: str = "torch",
+    route=None,
 ):
     """Ranked head-of-line candidates for every class, best first.
 
     Returns (idx, n_elig): (K, L) int32 ranked indices with L = min(b, N)
     and (K,) int32 eligible counts.  Only the first min(n_elig[c], L)
-    entries of row c are meaningful."""
+    entries of row c are meaningful.  `route` ((N,) float32 or None)
+    adds the fleet route term to scored classes on both backends."""
     b = min(int(b), batch.n)
     n_elig = cls_mask.sum(dim=1, dtype=torch.int32)
     if backend == "kernel":
-        return _select_top_b_kernel(batch, cls_mask, now_ms, cfg, b), n_elig
+        return _select_top_b_kernel(batch, cls_mask, now_ms, cfg, b,
+                                    route), n_elig
     if backend != "torch":
         raise ValueError(f"unknown ordering backend: {backend!r}")
     fifo_key = torch.where(cls_mask, batch.arrival_ms[None, :], float("inf"))
     scores = torch.where(
-        cls_mask, order_scores(batch, now_ms, cfg)[None, :], _NEG)
+        cls_mask, order_scores(batch, now_ms, cfg, route)[None, :], _NEG)
     fifo_rank = _rank_desc(-fifo_key, b)   # (K, L) earliest first
     sc_rank = _rank_desc(scores, b)        # (K, L) best score first
     use_score = cfg.ord_scored[:, None] > 0

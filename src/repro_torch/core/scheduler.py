@@ -11,13 +11,19 @@ replays only the O(K) allocation step per grant.  Severity is frozen
 across the B grants, while DRR deficits, per-class and global inflight
 caps and the FQ pointer update per grant.
 
+In fleet mode `schedule_batch` takes the route term and each request's
+endpoint from `routing.route_requests`: the route joins the scored
+ordering, and each grant's endpoint is gathered into
+`BatchDecision.provider_idx`.  Routing sits above allocation, so the
+three paper layers are unchanged.
+
 The reference's `lax.fori_loop` over the grants is a Python loop of at
 most B iterations over (K,)-sized tensors.  Nothing in it reads a value
 back to the host, so the loop only enqueues device work.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,6 +52,8 @@ class BatchDecision(NamedTuple):
     severity: torch.Tensor     # () float32 severity shared by all B decisions
     deficit: torch.Tensor      # (K,) float32 updated allocation deficits
     rr_turn: torch.Tensor      # () int32 updated FQ pointer
+    # (B,) int32 fleet endpoint per grant; None outside fleet mode
+    provider_idx: Optional[torch.Tensor] = None
 
 
 def effective_class(cfg: PolicyConfig, batch: RequestBatch) -> torch.Tensor:
@@ -154,8 +162,13 @@ def schedule_batch(
     state: SimState,
     max_grants: int = 1,
     backend: str = "torch",
+    route=None,
+    endpoint=None,
 ) -> BatchDecision:
-    """Grant up to `max_grants` releases in one pass (see module doc)."""
+    """Grant up to `max_grants` releases in one pass (see module doc).
+    `route` ((N,) float32) and `endpoint` ((N,) int32) are the fleet's
+    route term and best endpoints; passing neither is the
+    single-provider program."""
     k = n_classes(cfg)
     bmax = min(int(max_grants), batch.n)
     dev = batch.arrival_ms.device
@@ -170,7 +183,7 @@ def schedule_batch(
 
     # layer 2 once: ranked candidates per class + the global FIFO lane
     rank_idx, n_elig_cls = ordering.select_top_b(
-        batch, elig_kn, now, cfg, bmax, backend=backend)
+        batch, elig_kn, now, cfg, bmax, backend=backend, route=route)
     glob_idx, n_elig_tot = ordering.rank_fifo(batch, elig, bmax,
                                               backend=backend)
     # int64 inside the grant loop: indices are cast once, here
@@ -247,11 +260,16 @@ def schedule_batch(
         actions.append(action)
         idxs.append(idx)
 
+    req_idx = torch.stack(idxs).to(i32)
+    # the endpoint was fixed before allocation: granting only gathers it
+    provider_idx = None if endpoint is None else take(
+        endpoint, torch.clamp(req_idx, 0, batch.n - 1)).to(i32)
     return BatchDecision(
         actions=torch.stack(actions),
-        req_idx=torch.stack(idxs).to(i32),
+        req_idx=req_idx,
         inflight_at=torch.stack(infl_at).to(i32),
         severity=sev,
         deficit=deficit,
         rr_turn=rr_turn,
+        provider_idx=provider_idx,
     )

@@ -10,12 +10,13 @@ codes follow the paper's lifecycle:
             --timeout--> ABANDONED
 
 Stored indices stay int32; code casts to int64 only where it indexes.
-Fleet state (`FleetState`, `RequestState.endpoint`) is not part of
-this package yet.
+Fleet state (`FleetState`, `RequestState.endpoint`, `SimState.fleet`)
+is present only in fleet mode: None marks the mechanism's absence, so a
+single-provider run carries exactly the single-provider state.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -64,6 +65,9 @@ class RequestState(NamedTuple):
     defer_until: torch.Tensor  # (N,) float32 earliest re-eligibility
     n_defers: torch.Tensor     # (N,) int32 times this request was deferred
     n_throttles: torch.Tensor  # (N,) int32 provider 429s this request saw
+    # (N,) int32 fleet endpoint the request was last routed to; None
+    # outside fleet mode
+    endpoint: Optional[torch.Tensor] = None
 
 
 class SchedState(NamedTuple):
@@ -84,11 +88,26 @@ class ProviderState(NamedTuple):
     n_throttled: torch.Tensor      # () int32 total 429-style bounces
 
 
+class FleetState(NamedTuple):
+    """Per-endpoint provider state along the fleet axis P.  In fleet
+    mode `ProviderState` keeps the global totals (allocation and
+    overload are endpoint-agnostic); this carries the per-endpoint
+    split the routing layer scores."""
+
+    inflight: torch.Tensor         # (P,) int32 outstanding per endpoint
+    inflight_tokens: torch.Tensor  # (P,) float32 outstanding predicted work
+    tb_tokens: torch.Tensor        # (P, K) float32 per-endpoint rate grants
+    n_throttled: torch.Tensor      # (P,) int32 429 bounces per endpoint
+    n_requeued: torch.Tensor       # (P,) int32 in-flight requests requeued
+                                   #   by an endpoint failure (failover)
+
+
 class SimState(NamedTuple):
     now_ms: torch.Tensor  # () float32
     req: RequestState
     sched: SchedState
     provider: ProviderState
+    fleet: Optional[FleetState] = None  # (P,) split; None = one provider
 
 
 class WindowCarry(NamedTuple):
@@ -105,10 +124,13 @@ class WindowCarry(NamedTuple):
     n_live: torch.Tensor    # () int32 occupied slot count
 
 
-def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def take(x: torch.Tensor | None, idx: torch.Tensor) -> torch.Tensor | None:
     """`x[idx]` for a 1-d `x` and an integer tensor `idx` of any shape,
     cast to int64 here, at the indexing site.  Unlike `x[idx]` with a
-    0-d tensor, it never reads the index back to the host."""
+    0-d tensor, it never reads the index back to the host.  A None `x`
+    (a mechanism that is off) stays None."""
+    if x is None:
+        return None
     return torch.take(x, idx if idx.dtype == torch.int64 else idx.long())
 
 
@@ -141,6 +163,20 @@ def init_provider_state(n_classes: int, device: torch.device
         tb_tokens=torch.zeros((n_classes,), dtype=torch.float32,
                               device=device),
         n_throttled=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def init_fleet_state(p: int, n_classes: int, device: torch.device
+                     ) -> FleetState:
+    """Zeroed fleet state; `run_sim` fills the buckets to their burst
+    capacity when a per-endpoint limiter is configured."""
+    f32, i32 = torch.float32, torch.int32
+    return FleetState(
+        inflight=torch.zeros((p,), dtype=i32, device=device),
+        inflight_tokens=torch.zeros((p,), dtype=f32, device=device),
+        tb_tokens=torch.zeros((p, n_classes), dtype=f32, device=device),
+        n_throttled=torch.zeros((p,), dtype=i32, device=device),
+        n_requeued=torch.zeros((p,), dtype=i32, device=device),
     )
 
 

@@ -8,10 +8,16 @@ from repro_torch.sim.metrics import (  # noqa: F401
     compute_phase_metrics,
 )
 from repro_torch.sim.provider import (  # noqa: F401
+    Fleet,
+    FleetDynamics,
+    FleetPhysics,
     ProviderDynamics,
     ProviderPhysics,
+    availability_schedule,
     default_physics,
+    fleet_brownout_schedule,
     physics_for_arch,
+    uniform_fleet_physics,
 )
 from repro_torch.sim.runner import (  # noqa: F401
     fmt_cell,

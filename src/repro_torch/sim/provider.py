@@ -1,7 +1,6 @@
 """Congestion-aware mock provider (paper §4.1) and its dynamics.
 
-Counterpart of `repro.sim.provider` without the fleet axis: service
-time is linear in output tokens and multiplied by a convex load factor
+Counterpart of `repro.sim.provider`: service time is linear in output tokens and multiplied by a convex load factor
 once the provider is driven past its comfortable concurrency.
 
 `ProviderDynamics` carries per-tick schedules that `run_sim` reads one
@@ -16,9 +15,12 @@ row a tick:
 
 A field is None when its mechanism is off.  The schedules are built on
 the CPU in float32, with the reference's operations in its order, so
-their bits equal the reference's (`sim/scenarios.py` `build`).  The
-fleet types (`FleetPhysics`, `FleetDynamics`, `Fleet`) are not part of
-this package yet (ROADMAP queue A, item A5(b)).
+their bits equal the reference's (`sim/scenarios.py` `build`).
+
+The fleet axis stacks the physics along P endpoints (`FleetPhysics`)
+and gives each schedule a P axis (`FleetDynamics`), plus `avail`: an
+endpoint whose availability is below 0.5 on a tick refuses new work
+and kills its in-flight requests, which `run_sim` requeues.
 """
 from __future__ import annotations
 
@@ -149,3 +151,89 @@ def token_bucket_windows(n_ticks: int, dt_ms: float, rate_rps, burst: float,
     # the brownout's windowed minimum, over rate multipliers
     scale = brownout_schedule(n_ticks, dt_ms, windows, span_ms)
     return refill * scale[:, None], capacity
+
+
+# ---------------------------------------------------------------------------
+# Fleet: a (P,) provider axis
+# ---------------------------------------------------------------------------
+
+class FleetPhysics(NamedTuple):
+    """`ProviderPhysics` stacked along a (P,) endpoint axis.  The physics
+    formulas are elementwise, so `service_time_ms` works unchanged on a
+    per-grant gather of these leaves."""
+
+    base_ms: torch.Tensor              # (P,) float32
+    ms_per_token: torch.Tensor         # (P,) float32
+    comfort_concurrency: torch.Tensor  # (P,) float32
+    slowdown_slope: torch.Tensor       # (P,) float32
+    slowdown_quad: torch.Tensor        # (P,) float32
+
+
+class FleetDynamics(NamedTuple):
+    """Per-tick, per-endpoint schedules.  None fields are mechanisms
+    that are off; `retry_after_ms` is always present (both the limiter's
+    bounce and the failover requeue wait it out)."""
+
+    avail: Optional[torch.Tensor]          # (T, P) 0/1 endpoint up
+    comfort_scale: Optional[torch.Tensor]  # (T, P) brownout multiplier
+    tb_refill: Optional[torch.Tensor]      # (T, P, K) grants a tick
+    tb_capacity: Optional[torch.Tensor]    # (P, K) bucket burst size
+    retry_after_ms: torch.Tensor           # () client-visible Retry-After
+
+
+class Fleet(NamedTuple):
+    """What `run_sim(..., fleet=...)` takes."""
+
+    phys: FleetPhysics
+    dyn: FleetDynamics
+
+
+def uniform_fleet_physics(phys: ProviderPhysics, p: int, speed_mult=None,
+                          comfort_mult=None) -> FleetPhysics:
+    """One endpoint's physics broadcast over P; `speed_mult[p]` scales
+    the per-token cost (< 1 is faster), `comfort_mult[p]` the knee."""
+    dev = phys.base_ms.device
+    ones = torch.ones((p,), dtype=torch.float32, device=dev)
+    speed = ones if speed_mult is None else torch.as_tensor(
+        speed_mult, dtype=torch.float32, device=dev)
+    comfort = ones if comfort_mult is None else torch.as_tensor(
+        comfort_mult, dtype=torch.float32, device=dev)
+    return FleetPhysics(
+        base_ms=phys.base_ms.expand(p).clone(),
+        ms_per_token=phys.ms_per_token * speed,
+        comfort_concurrency=phys.comfort_concurrency * comfort,
+        slowdown_slope=phys.slowdown_slope.expand(p).clone(),
+        slowdown_quad=phys.slowdown_quad.expand(p).clone(),
+    )
+
+
+def _tick_end_ms(n_ticks: int, dt_ms: float) -> torch.Tensor:
+    return (torch.arange(n_ticks, dtype=torch.float32) + 1.0) * dt_ms
+
+
+def availability_schedule(n_ticks: int, dt_ms: float, fail_windows,
+                          span_ms: float, p: int) -> torch.Tensor:
+    """(T, P) float32 availability: 1 except inside each `(endpoint,
+    start_frac, end_frac)` fail window over the arrival span."""
+    t_ms = _tick_end_ms(n_ticks, dt_ms)
+    avail = torch.ones((n_ticks, p), dtype=torch.float32)
+    for ep, start_frac, end_frac in fail_windows:
+        inside = (t_ms >= start_frac * span_ms) & (t_ms < end_frac * span_ms)
+        avail[:, ep] = torch.where(inside, 0.0, avail[:, ep])
+    return avail
+
+
+def fleet_brownout_schedule(n_ticks: int, dt_ms: float, windows,
+                            span_ms: float, p: int) -> torch.Tensor:
+    """(T, P) float32 comfort multiplier: `brownout_schedule` per
+    endpoint, from `(endpoint, start_frac, end_frac, scale)` windows;
+    overlaps on one endpoint take the least scale."""
+    t_ms = _tick_end_ms(n_ticks, dt_ms)
+    scale = torch.ones((n_ticks, p), dtype=torch.float32)
+    for ep, start_frac, end_frac, s in windows:
+        inside = (t_ms >= start_frac * span_ms) & (t_ms < end_frac * span_ms)
+        scale[:, ep] = torch.where(
+            inside,
+            torch.minimum(scale[:, ep], torch.tensor(s, dtype=torch.float32)),
+            scale[:, ep])
+    return scale

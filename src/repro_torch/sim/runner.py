@@ -5,8 +5,8 @@ Counterpart of `repro.sim.runner`.  The reference `vmap`s the seeds
 through one jitted program; the port loops over them.  Each seed's
 workload is drawn on the CPU from `torch.Generator().manual_seed(seed)`,
 so a cell run on CUDA and the same cell run on the CPU see the same
-requests.  `run_scenario_cell` builds the scenario's schedules once and
-returns per-phase metrics beside the aggregates.
+requests.  `run_scenario_cell` builds the scenario's schedules (a
+fleet's too) once and returns per-phase metrics beside the aggregates.
 """
 from __future__ import annotations
 
@@ -114,12 +114,16 @@ def run_scenario_cell(
         scenario, n_requests, sim_cfg.n_ticks, sim_cfg.dt_ms,
         class_map=class_map, information=information, limiter_classes=k,
         arrival_scale=arrival_scale)
+    # a fleet scenario gives (T, P) schedules here and no dynamics above
+    fleet = scn.build_fleet(scenario, phys, sim_cfg.n_ticks, sim_cfg.dt_ms,
+                            n_requests, k, arrival_scale)
     per_seed, per_phase, runs = [], [], []
     for seed in range(seed0, seed0 + seeds):
         gen = torch.Generator().manual_seed(seed)
         batch, jitter = generate(wl_cfg, gen, device=dev, sched=sched)
         out = run_sim(policy, batch, jitter, phys, sim_cfg, dynamics,
-                      collect_decisions=collect_decisions, device=dev)
+                      collect_decisions=collect_decisions, fleet=fleet,
+                      device=dev)
         final = out[0] if collect_decisions else out
         if collect_decisions:
             runs.append(out)

@@ -1,14 +1,19 @@
 """Scenario registry: named nonstationary workload and provider regimes.
 
-Counterpart of `repro.sim.scenarios` for a single provider.  A
-`Scenario` is a static, hashable spec composing
+Counterpart of `repro.sim.scenarios`.  A `Scenario` is a static,
+hashable spec composing
 
   * an arrival shape: piecewise-constant phases `(frac, rate_mult, mix)`
     over the scenario's arrival span (burst trains, diurnal ramps, flash
     crowds, heavy-dominated phase shifts);
   * provider dynamics: brownout windows and per-class token-bucket rate
     limits with 429-style bounces (`sim/provider.ProviderDynamics`),
-    optionally with a refill that varies over time (`tb_windows`).
+    optionally with a refill that varies over time (`tb_windows`);
+  * or a fleet of P endpoints (`FleetSpec`): skewed physics, fail
+    windows, per-endpoint brownouts and a per-endpoint limiter, which
+    `build_fleet` turns into a `Fleet` of (T, P) schedules.  Fleet and
+    single-provider dynamics never coexist: `build` gives no dynamics
+    for a fleet scenario.
 
 `build` turns the spec into tensors on the CPU: the arrival schedule,
 the (T,)-shaped provider schedules and the metric phase edges.  Each is
@@ -17,11 +22,9 @@ order, so the bits are the reference's.
 
 Phases lie over the expected stationary arrival span (`n_requests /
 base_rate`), not the horizon, which includes the drain.  Registry
-scenarios keep the frac-weighted mean rate multiplier at 1.0.  The
-fleet scenarios keep their `FleetSpec`, a static spec, but
-`build_fleet` (and `build` on a fleet scenario) raise: the fleet axis
-is ROADMAP queue A, item A5(b).  Fault schedules ride the spec for the
-live path (A6); the simulator ignores them.
+scenarios keep the frac-weighted mean rate multiplier at 1.0.  Fault
+schedules ride the spec for the live path (A6); the simulator ignores
+them.
 """
 from __future__ import annotations
 
@@ -31,11 +34,16 @@ import torch
 
 from repro_torch.sim.faults import FaultSchedule
 from repro_torch.sim.provider import (
+    Fleet,
+    FleetDynamics,
     ProviderDynamics,
     ProviderPhysics,
+    availability_schedule,
     brownout_schedule,
+    fleet_brownout_schedule,
     token_bucket_schedule,
     token_bucket_windows,
+    uniform_fleet_physics,
 )
 from repro_torch.sim.workload import (
     MIXES,
@@ -59,16 +67,20 @@ class Phase(NamedTuple):
 
 class FleetSpec(NamedTuple):
     """Static (P,) fleet spec riding a `Scenario`: endpoint count, skew
-    of their physics, and per-endpoint incidents.  Nothing in this
-    package builds it yet (ROADMAP queue A, item A5(b))."""
+    of their physics, and per-endpoint incidents; `build_fleet` turns it
+    into (T, P) schedules."""
 
     p: int = 4
+    # per-endpoint ms/token multiplier (< 1 is faster) and comfort-knee
+    # multiplier; None = a uniform fleet
     speed_mult: Optional[tuple[float, ...]] = None
     comfort_mult: Optional[tuple[float, ...]] = None
-    # (endpoint, start_frac, end_frac) hard-down windows
+    # (endpoint, start_frac, end_frac) hard-down windows over the arrival
+    # span: in-flight work is killed and requeued
     fail_windows: tuple[tuple[int, float, float], ...] = ()
     # (endpoint, start_frac, end_frac, comfort_scale) brownouts
     brownouts: tuple[tuple[int, float, float, float], ...] = ()
+    # per-endpoint per-class sustained grant rate; None = no (P, K) grid
     tb_rate_rps: Optional[float] = None
     tb_burst: float = 6.0
     retry_after_ms: float = 1500.0
@@ -103,12 +115,6 @@ class Scenario(NamedTuple):
     @property
     def has_dynamics(self) -> bool:
         return bool(self.brownouts) or self.tb_rate_rps is not None
-
-
-def _fleet_not_ported(sc: Scenario) -> NotImplementedError:
-    return NotImplementedError(
-        f"scenario {sc.name!r} runs a provider fleet, which is not ported "
-        f"yet: ROADMAP queue A, item A5(b)")
 
 
 def arrival_span_ms(sc: Scenario, n_requests: int,
@@ -193,12 +199,30 @@ def build_dynamics(sc: Scenario, n_ticks: int, dt_ms: float,
 
 def build_fleet(sc: Scenario, phys: ProviderPhysics, n_ticks: int,
                 dt_ms: float, n_requests: int, k: int,
-                arrival_scale: float = 1.0):
-    """None for a single-provider scenario; a fleet scenario raises (the
-    fleet axis is not ported yet)."""
-    if sc.fleet is None:
+                arrival_scale: float = 1.0) -> Fleet | None:
+    """The (T, P)-shaped fleet schedules of a fleet scenario; None for a
+    single-provider one.  `phys` is the base physics the fleet skews
+    from (the reference physics of the tail EMA)."""
+    fs = sc.fleet
+    if fs is None:
         return None
-    raise _fleet_not_ported(sc)
+    span = arrival_span_ms(sc, n_requests, arrival_scale)
+    fphys = uniform_fleet_physics(phys, fs.p, fs.speed_mult, fs.comfort_mult)
+    avail = (availability_schedule(n_ticks, dt_ms, fs.fail_windows, span,
+                                   fs.p) if fs.fail_windows else None)
+    comfort = (fleet_brownout_schedule(n_ticks, dt_ms, fs.brownouts, span,
+                                       fs.p) if fs.brownouts else None)
+    refill = capacity = None
+    if fs.tb_rate_rps is not None:
+        refill1, cap1 = token_bucket_schedule(
+            n_ticks, dt_ms, (float(fs.tb_rate_rps),) * k, fs.tb_burst)
+        # every endpoint gets its own copy of the per-class budget
+        refill = refill1[:, None, :].expand(n_ticks, fs.p, k)
+        capacity = cap1[None, :].expand(fs.p, k)
+    return Fleet(phys=fphys, dyn=FleetDynamics(
+        avail=avail, comfort_scale=comfort, tb_refill=refill,
+        tb_capacity=capacity,
+        retry_after_ms=torch.tensor(fs.retry_after_ms, dtype=_F32)))
 
 
 def build(sc: Scenario, n_requests: int, n_ticks: int, dt_ms: float,
@@ -210,9 +234,9 @@ def build(sc: Scenario, n_requests: int, n_ticks: int, dt_ms: float,
     phase edges) for one scenario.  `limiter_classes` sizes the token
     buckets (pass the policy's K; default the lane scheme's);
     `arrival_scale` offers the same population at a higher rate, so the
-    span, phase edges and schedules all compress together."""
-    if sc.fleet is not None:
-        raise _fleet_not_ported(sc)
+    span, phase edges and schedules all compress together.  A fleet
+    scenario has no provider dynamics here: its schedules come from
+    `build_fleet`."""
     wl_cfg = WorkloadConfig(
         n_requests=n_requests,
         mix=sc.mix,
@@ -297,8 +321,8 @@ SCENARIOS: dict[str, Scenario] = {
         tb_rate_rps=0.8,
         tb_burst=8.0,
     ),
-    # fleets (A5(b)): an endpoint failure, a skewed fleet, brownouts on
-    # two endpoints in staggered windows
+    # fleets: an endpoint failure, a skewed fleet, brownouts on two
+    # endpoints in staggered windows
     "fleet_failover": Scenario(
         "fleet_failover",
         congestion="high",

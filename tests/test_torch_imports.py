@@ -6,6 +6,9 @@
 * Entry points default to CUDA and raise when no card is present,
   unless the caller asks for the CPU: the simulator's and the serving
   path's (`init_model`, `generate`, `BlackBoxProvider`).
+* The fleet axis is exported under the reference's names
+  (`repro_torch.core.routing`, the fleet types and schedules in
+  `repro_torch.sim`), and its entry points run on CUDA by default too.
 * `params_from_jax` refuses a parameter tree that does not fit the
   config.
 * Every kernel package of the port ships its CUDA source, a plain
@@ -89,6 +92,30 @@ def test_other_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_scenario_cell(strategy("final_adrr_olc"), "storm", seeds=1,
                           n_requests=8, sim_cfg=SimConfig(n_ticks=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_scenario_cell(strategy("final_adrr_olc"), "fleet_failover",
+                          seeds=1, n_requests=8, sim_cfg=SimConfig(n_ticks=2))
+
+
+def test_fleet_names_match_the_reference():
+    import repro.core.routing as rrouting
+    import repro.sim as rsim
+    from repro.core import types as rtypes
+
+    import repro_torch.sim as psim
+    from repro_torch.core import routing, types
+
+    assert routing.UNAVAIL_MS == rrouting.UNAVAIL_MS
+    assert callable(routing.route_requests)
+    for name in ("Fleet", "FleetDynamics", "FleetPhysics",
+                 "uniform_fleet_physics", "build_fleet", "FleetSpec"):
+        assert hasattr(psim, name) and hasattr(rsim, name), name
+    for name in ("Fleet", "FleetDynamics", "FleetPhysics"):
+        assert getattr(psim, name)._fields == getattr(rsim, name)._fields
+    for name in ("FleetState", "RequestState", "SimState"):
+        assert getattr(types, name)._fields == getattr(rtypes, name)._fields
+    assert (types.init_fleet_state(3, 2, torch.device("cpu")).tb_tokens.shape
+            == (3, 2))
 
 
 def test_serving_entry_points_raise_without_cuda(no_cuda):

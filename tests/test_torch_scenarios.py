@@ -19,7 +19,8 @@
    run here, dense and windowed; the other eight single-provider
    scenarios without faults run dense in `test_torch_scenarios_dense.py`.
 4. The port's dense and windowed engines agree bit for bit under
-   dynamics; fleet scenarios raise, naming ROADMAP item A5(b).
+   dynamics; fleet scenarios build as the reference's (their engine
+   parity is `test_torch_fleet.py`).
 
 `FLOAT_TOL` is a few float32 ulps (atol for values near 0): the port
 rounds some of the reference's contracted multiply-adds in two steps
@@ -391,14 +392,35 @@ def test_run_scenario_cell_sizes_buckets_by_policy_and_refuses_lanes():
 
 @pytest.mark.parametrize("name", FLEET)
 def test_fleet_scenarios_raise(name):
-    sc = scn.get_scenario(name)
-    with pytest.raises(NotImplementedError, match=r"A5\(b\)"):
-        scn.build(sc, N, T, DT)
-    with pytest.raises(NotImplementedError, match=r"A5\(b\)"):
-        scn.build_fleet(sc, default_physics(), T, DT, N, 2)
-    with pytest.raises(NotImplementedError, match=r"A5\(b\)"):
-        run_scenario_cell(strategy("final_adrr_olc"), name, seeds=1,
-                          sim_cfg=SimConfig(n_ticks=5), device="cpu")
+    """A fleet scenario builds as in the reference (it raised before the
+    fleet axis was ported; the name is kept): `build` gives no provider
+    dynamics and the reference's arrival schedule and phase edges bit
+    for bit, `build_fleet` the reference's fleet bit for bit, and
+    `run_scenario_cell` runs it."""
+    sc, rsc = scn.get_scenario(name), rscn.get_scenario(name)
+    got = scn.build(sc, N, T, DT, limiter_classes=2, arrival_scale=SCALE)
+    want = rscn.build(rsc, N, T, DT, limiter_classes=2, arrival_scale=SCALE)
+    assert got[2] is None and want[2] is None
+    assert got[0]._asdict() == want[0]._asdict()
+    for f in want[1]._fields:
+        if f != "mix_varies":
+            assert bits_equal(getattr(got[1], f), getattr(want[1], f)), f
+    assert bits_equal(got[3], want[3])
+    gf = scn.build_fleet(sc, default_physics(), T, DT, N, 2, SCALE)
+    wf = rscn.build_fleet(rsc, ref_physics(), T, DT, N, 2, SCALE)
+    for part in ("phys", "dyn"):
+        for f in getattr(wf, part)._fields:
+            w, g = getattr(getattr(wf, part), f), getattr(getattr(gf, part),
+                                                          f)
+            assert (g is None) == (w is None), f
+            if w is not None:
+                assert bits_equal(g.contiguous(), w), f
+    m, pm = run_scenario_cell(strategy("final_adrr_olc"), name, seeds=1,
+                              n_requests=24, arrival_scale=SCALE,
+                              sim_cfg=SimConfig(n_ticks=300, window=32),
+                              device="cpu")
+    assert pm.n_arrived.sum().item() == 24
+    assert float(m.completion_rate[0]) > 0.3
     assert scn.build_fleet(scn.get_scenario("storm"), default_physics(), T,
                            DT, N, 2) is None
 
@@ -412,6 +434,7 @@ def test_no_dynamics_runs_the_stationary_engine():
     b = run_sim(strategy("final_adrr_olc"), batch, jitter, default_physics(),
                 cfg, no_dynamics(), device="cpu")
     for x, y in zip(a.req, b.req):
-        assert torch.equal(x, y)
+        # the fleet's `endpoint` field is None on both single-provider runs
+        assert (x is None and y is None) or torch.equal(x, y)
     assert isinstance(no_dynamics(), ProviderDynamics)
     assert int((a.req.status == COMPLETED).sum()) > 0

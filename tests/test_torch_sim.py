@@ -33,7 +33,12 @@ from repro.sim.workload import generate as ref_generate
 from repro_torch.bridge import from_numpy, to_numpy
 from repro_torch.core.policy import strategy
 from repro_torch.core.types import COMPLETED, INFLIGHT, PENDING
-from repro_torch.sim.provider import no_dynamics
+from repro_torch.sim.provider import (
+    Fleet,
+    FleetDynamics,
+    no_dynamics,
+    uniform_fleet_physics,
+)
 from repro_torch.sim import (
     SimConfig,
     WorkloadConfig,
@@ -242,18 +247,34 @@ class TestRunner:
                      seeds=1, device="cpu")
 
     def test_dynamics_and_fleet_are_not_ported_yet(self):
-        """The dynamics half of the simulator is ported (its parity is
-        `test_torch_scenarios.py`); the fleet axis still raises, and
-        both together are refused as in the reference."""
-        batch, jitter = generate(WorkloadConfig(n_requests=8),
-                                 device="cpu")
+        """Both the dynamics and the fleet axis are ported (the name is
+        kept from when the fleet raised; their parity is
+        `test_torch_scenarios.py` and `test_torch_fleet.py`): a
+        one-endpoint fleet makes the plain run's decisions and request
+        arrays bit for bit, a run with `no_dynamics()` is the stationary
+        one, and dynamics with a fleet are refused as in the
+        reference."""
+        batch, jitter = generate(
+            WorkloadConfig(n_requests=24, congestion="high",
+                           arrival_scale=4.0), device="cpu")
         run = functools.partial(run_sim, strategy("final_adrr_olc"), batch,
                                 jitter, default_physics(),
-                                SimConfig(n_ticks=1), device="cpu")
-        with pytest.raises(NotImplementedError, match=r"A5\(b\)"):
-            run(fleet=object())
+                                SimConfig(n_ticks=200), device="cpu",
+                                collect_decisions=True)
+        fleet = Fleet(uniform_fleet_physics(default_physics(), 1),
+                      FleetDynamics(None, None, None, None,
+                                    torch.tensor(1500.0)))
+        plain, one = run(), run(fleet=fleet)
+        stationary = run(dynamics=no_dynamics())
+        for other in (one, stationary):
+            for a, b in zip(plain[1], other[1]):
+                assert torch.equal(a, b)
+            for f in plain[0].req._fields[:6]:
+                assert torch.equal(getattr(plain[0].req, f),
+                                   getattr(other[0].req, f)), f
+        assert int((plain[0].req.status == COMPLETED).sum()) > 0
+        assert plain[0].fleet is None and one[0].fleet.inflight.shape == (1,)
+        assert torch.equal(one[0].req.endpoint, torch.zeros(24,
+                                                            dtype=torch.int32))
         with pytest.raises(ValueError, match="mutually exclusive"):
-            run(dynamics=no_dynamics(), fleet=object())
-        final = run(dynamics=no_dynamics())
-        assert final.req.status.shape == (8,)
-
+            run(dynamics=no_dynamics(), fleet=fleet)
