@@ -19,8 +19,12 @@ failover with requeue, per-endpoint buckets), card against CPU and at
 the scale run's size.  Each path is driven with every
 kernel's launch count set to 0 just before it and read just after; the
 kernels line carries each kernel's launches summed over the paths.
+The live client session runs the same scheduler through its
+`ClientSession` against a `MockProvider` (phase 5f).
 Each phase prints one JSON line; any failure raises and the script
-exits non-zero.  The last lines are the card (as nvidia-smi reports
+exits non-zero.  `--only=session` (or another name of `SELECTABLE`,
+comma-separated) runs just those scheduler phases after the build, as
+a rehearsal: it prints no kernels line and no result line.  The last lines are the card (as nvidia-smi reports
 it), one JSON line of kernel measurements, and the result line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -47,9 +51,14 @@ Phases:
      it);
   4. paper cell: `run_cell` on the card and on the CPU with the same
      inputs — equal decision traces, equal terminal statuses, metrics
-     within the tests' tolerance (`CELL_TOL`).  Here and in phases
-     5a, 5b and 5d the CPU run goes on in a spawned process while the
-     card runs (`card_and_cpu`), which is joined before the phase ends;
+     within the tests' tolerance (`CELL_TOL`).  Both runs go on in
+     spawned processes of their own (the card's on a card that
+     processes may share, compute mode Default), started after phase 5
+     and read before 5c, so that they overlap phases 5a, 5b and 5d,
+     whose rates the check does not read, and none of the timed scale
+     runs; the card run is timed from after a warm-up launch.  In
+     phases 5a, 5b and 5d the CPU run goes on in a spawned process
+     while the card runs (`card_and_cpu`), joined before the phase ends;
   5. scale: the windowed run at N = 100,000, W = 4096, B = 16 on the
      card — `sched_score_topb` launched (K+1) times a tick, every request
      accounted for on every tick and after the drain, `sched_compact_topb`
@@ -98,6 +107,33 @@ Phases:
      flight on endpoint 0 at a tick inside its fail window, the fleet's
      inflight counts equal to a recount by endpoint on the last tick,
      completions on endpoints 1-3 inside the window, ticks/s;
+ 5f. session: the live client (`repro_torch.client`).  session_parity:
+     `ClientSession` over `MockProvider` in virtual time, `balanced`/
+     medium at N = 48, W = 64, B = 4, 900 polls, seeds 0 and 1, and
+     `storm` through `MockProvider.from_scenario` at N = 160, 4x the
+     rate, W = 256, 1,604 polls: the card's session equal to the same
+     session on the CPU and to the port's windowed `run_sim` on the card
+     in actions, the request of every live grant, severity bits, each
+     request's status and 429 bounces at the horizon and every
+     completion's finish bits, (K+1) `sched_score_topb` launches a poll;
+     session_recovery: `silent_drop`, `stuck_tail` and `dup_storm` at
+     N = 32 (arrivals and schedules over 1,600 ticks) with
+     `ResilienceConfig(timeout_mult=3.0, max_resubmits=3)`, polled to
+     drain (at most 9,000 polls), held to the reference's gates
+     (completion >= 0.99, nothing unfinished, resubmits where a fault
+     fired, the duplicate storm completed with duplicates discarded, no
+     double retire), `stuck_tail` in a card process of its own and the
+     other two after the engine runs; session_scale: W = 4096, B = 16,
+     K = 2, 100,000
+     requests arrived at t = 0 under `benchmarks/client_bench.py`'s
+     policy and fast physics, 600 untraced polls (polls/s, completions,
+     the `enable_profiling` breakdown), 40 traced (device ops, busy ms
+     and idle share a poll), 20 under `torch.cuda.set_sync_debug_mode`
+     (device-to-host syncs a poll, printed, not gated), and N = 1,000
+     drained at the same W and B for the per-request rate ratio.  The
+     CPU sessions, the card's engine runs and the recovery runs go on in
+     spawned processes while this one runs the card's sessions; the
+     scale run starts after all of them have ended;
   6. attention_kernels: `flash_attention` and `decode_attention` against
      their plain versions on the card at StableLM-2-1.6B's geometry
      (H = KV = 32, hd = 64, bf16; flash also at B = 4 and with fewer
@@ -170,6 +206,14 @@ PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 REPS = 60
 
 
+# phases `--only=a,b` runs (after the build) for a rehearsal
+SELECTABLE = {"paper_cell": "phase_paper_cell", "tables": "phase_tables",
+              "scenarios": "phase_scenarios",
+              "scenario_scale": "phase_scenario_scale",
+              "fleet": "phase_fleet", "fleet_scale": "phase_fleet_scale",
+              "session": "phase_session"}
+
+
 def emit(**kw):
     print(json.dumps(kw), flush=True)
 
@@ -217,18 +261,37 @@ def main() -> None:
         seconds[name] = time.perf_counter() - t0
         return out
 
+    only = [a.split("=", 1)[1] for a in sys.argv[1:]
+            if a.startswith("--only=")]
+    if only:
+        # a rehearsal of some scheduler phases: no kernels line and no
+        # result line, so it never stands for the whole check
+        names = only[0].split(",")
+        for name in names:
+            check(name in SELECTABLE, f"--only: no phase {name!r}; "
+                  f"selectable: {sorted(SELECTABLE)}")
+            timed(name, globals()[SELECTABLE[name]])
+        emit(phase="seconds", **seconds)
+        print(f"chip_smoke: only {names} ran; no result line", flush=True)
+        return
+
     kernels = timed("kernels", phase_kernels)
     ssd_per_call = timed("ssd_kernels_per_call", ssd_kernels_per_call)
-    cell_launches = timed("paper_cell", phase_paper_cell)
     scale = timed("scale", phase_scale, kernels)
+    # phase 4 runs beside phases 5a, 5b and 5d, which time no rate; the
+    # timed scale runs (5, 5c, 5e, 5f) run without it
+    paper_cell = start_paper_cell(torch, dev)
     tables = timed("tables", phase_tables)
     scenarios = timed("scenarios", phase_scenarios)
-    scenario_scale = timed("scenario_scale", phase_scenario_scale)
     fleet = timed("fleet", phase_fleet)
+    # the wait for phase 4's end
+    cell_launches = timed("paper_cell", phase_paper_cell, paper_cell)
+    scenario_scale = timed("scenario_scale", phase_scenario_scale)
     fleet_scale = timed("fleet_scale", phase_fleet_scale)
-    # the scheduler's main-path launches: the scale run and these five
+    session = timed("session", phase_session)
+    # the scheduler's main-path launches: the scale run and these six
     kernels["sched_score_topb"]["launches"] += (
-        tables + scenarios + scenario_scale + fleet + fleet_scale)
+        tables + scenarios + scenario_scale + fleet + fleet_scale + session)
     kernels.update(timed("attention_kernels", phase_attention_kernels))
     served = timed("serve", phase_serve, kernels)
     kernels.update(timed("ssd_kernel", phase_ssd_kernel, ssd_per_call))
@@ -243,7 +306,7 @@ def main() -> None:
                    "decode_attention", "ssd_intra")])
     check(cell_launches > 0 and scale > 0 and tables > 0 and scenarios > 0
           and scenario_scale > 0 and fleet > 0 and fleet_scale > 0
-          and served > 0 and served_ssm > 0 and served_hybrid > 0,
+          and session > 0 and served > 0 and served_ssm > 0 and served_hybrid > 0,
           "main path launched no kernel")
     emit(ok=True, device={"platform": "gpu", "kind": kind,
                           "count": torch.cuda.device_count()})
@@ -679,22 +742,64 @@ def _as_torch(torch, obj):
     return obj
 
 
-def _cpu_job(conn, job, args):
-    """A spawned process's body: `job(torch, "cpu", *args)` on one
-    thread, its result sent back with numpy leaves and its seconds."""
+def _jobs_child(conn, device, jobs):
+    """A spawned process's body: each `(job, args)` of `jobs` as
+    `job(torch, device, *args)` (one thread on the CPU), the results
+    sent back with numpy leaves and their seconds, or the first error."""
     import torch
 
     from repro_torch.bridge import to_numpy
 
-    torch.set_num_threads(1)
+    if device == "cpu":
+        torch.set_num_threads(1)
     try:
-        t0 = time.perf_counter()
-        out = job(torch, "cpu", *args)
-        conn.send(("ok", to_numpy(out), time.perf_counter() - t0))
+        out = []
+        for job, args in jobs:
+            t0 = time.perf_counter()
+            res = job(torch, device, *args)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            res = ({k: to_numpy(v) for k, v in res.items()}
+                   if isinstance(res, dict) else to_numpy(res))
+            out.append((res, time.perf_counter() - t0))
+        conn.send(("ok", out))
     except BaseException as e:  # the parent raises it: report, not hang
-        conn.send(("error", repr(e), 0.0))
+        conn.send(("error", repr(e)))
     finally:
         conn.close()
+
+
+class Spawned:
+    """`jobs` run one after another in a spawned process of their own on
+    `device` while the caller goes on; `result()` joins it and returns
+    [(result, seconds)] or raises the child's error.  The process is a
+    daemon, so a failing script does not wait for it."""
+
+    def __init__(self, device, jobs):
+        ctx = multiprocessing.get_context("spawn")
+        self.recv, send = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_jobs_child, args=(send, device, jobs),
+                                daemon=True)
+        self.proc.start()
+        send.close()
+        self.what = f"{device}: " + ", ".join(
+            f"{job.__name__}{args}" for job, args in jobs)
+
+    def result(self):
+        try:
+            try:
+                msg = self.recv.recv()
+            except EOFError:
+                msg = ("error", "the process died")
+        finally:
+            self.proc.join(timeout=60)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+            self.recv.close()
+        check(msg[0] == "ok", f"the spawned run failed ({self.what}): "
+              f"{msg[1]}")
+        return msg[1]
 
 
 def card_and_cpu(torch, job, *args):
@@ -705,29 +810,14 @@ def card_and_cpu(torch, job, *args):
     what paces both runs, and the machine has cores to spare."""
     from repro_torch.kernels.sched_score import ops
 
-    ctx = multiprocessing.get_context("spawn")
-    recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=_cpu_job, args=(send, job, args))
-    proc.start()
-    send.close()
-    try:
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        card = job(torch, "cuda", *args)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = ops.LAUNCHES["sched_score_topb"]
-        try:
-            status, out, cpu_secs = recv.recv()
-        except EOFError:
-            status, out, cpu_secs = "error", "the CPU process died", 0.0
-    finally:
-        proc.join(timeout=60)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-        recv.close()
-    check(status == "ok", f"{job.__name__}{args}: the CPU run failed: {out}")
+    cpu = Spawned("cpu", [(job, args)])
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    card = job(torch, "cuda", *args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.LAUNCHES["sched_score_topb"]
+    (out, cpu_secs), = cpu.result()
     return (card, secs, launches), (_as_torch(torch, out), cpu_secs, None)
 
 
@@ -767,9 +857,44 @@ def paper_cell_run(torch, d):
     return metrics, runs[0]
 
 
-def phase_paper_cell(torch, dev):
-    (card, secs_g, launches), (cpu, secs_c, _) = card_and_cpu(
-        torch, paper_cell_run)
+def card_job(torch, d, job, *args):
+    """`job(torch, d, *args)`, the `sched_score_topb` launches it made and
+    its seconds, both counted from just before it, after one warm-up
+    launch has made the process's CUDA context and loaded the kernels'
+    library: a card run for a spawned process."""
+    from repro_torch.kernels.sched_score import ops
+
+    n = 256
+    z = torch.zeros(n, device=d)
+    ops.sched_score_topb(z, z, z, torch.ones(n, dtype=torch.bool, device=d),
+                         torch.ones(4, device=d), 4)
+    if d == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = job(torch, d, *args)
+    if d == "cuda":
+        torch.cuda.synchronize()
+    return {"out": out, "launches": ops.LAUNCHES["sched_score_topb"],
+            "seconds": time.perf_counter() - t0}
+
+
+def start_paper_cell(torch, dev):
+    """Phase 4's card and CPU runs, each in a spawned process of its own,
+    so that the card's 14,000 ticks overlap the phases the caller runs
+    until `phase_paper_cell` reads them (host-bound, the card idle >90%;
+    this adds one busy process beside each of them)."""
+    return (Spawned(dev.type, [(card_job, (paper_cell_run,))]),
+            Spawned("cpu", [(paper_cell_run, ())]))
+
+
+def phase_paper_cell(torch, dev, started=None):
+    card_p, cpu_p = started or start_paper_cell(torch, dev)
+    ((g, _),) = card_p.result()
+    ((cpu, secs_c),) = cpu_p.result()
+    card, launches = _as_torch(torch, g["out"]), int(g["launches"])
+    secs_g = float(g["seconds"])
+    cpu = _as_torch(torch, cpu)
     k = 2
     check(launches == (k + 1) * PAPER_TICKS,
           f"paper cell: {launches} sched_score_topb launches, want "
@@ -1441,6 +1566,398 @@ def phase_fleet_scale(torch, dev):
          status_counts=counts,
          n_throttles=int(final.req.n_throttles.sum()))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 5f. the live client session, card against CPU and against the engine
+# ---------------------------------------------------------------------------
+
+# name -> (workload or scenario, seed, polls, window, arrival scale, N)
+SESSION_PARITY = {
+    "balanced_s0": ("balanced", 0, 900, 64, 1.0, 48),
+    "balanced_s1": ("balanced", 1, 900, 64, 1.0, 48),
+    "storm": ("storm", 0, 1604, 256, 4.0, 160),
+}
+SESSION_FAULTS = ("silent_drop", "stuck_tail", "dup_storm")
+# N, the horizon the arrivals and schedules are built over, the cap on
+# polls (the reference's horizon for these gates; a run stops at drain)
+RECOVERY = (32, 1600, 9000)
+RECOVERY_RES = dict(timeout_mult=3.0, max_resubmits=3)
+# the recovery run with a card process of its own (the longest: seed 0's
+# xlong request waits out a ~70 s client deadline, ~3,800 polls); the
+# others follow the engine runs in theirs
+RECOVERY_APART = "stuck_tail"
+# N, W, B, K, untraced polls, traced polls, sync-counted polls; and the
+# small run of the N-independence ratio
+SESSION_SCALE = (100_000, 4096, 16, 2, 600, 40, 20)
+SESSION_SCALE_SMALL = 1000
+
+
+def session_requests(torch, name, seed, n, n_ticks, scale):
+    """The case's arrivals from the port's generator (on the CPU, so the
+    card and CPU runs see one batch): `balanced`/medium stationary, or a
+    registry scenario through `scenarios.build`.  Returns (batch,
+    jitter, dynamics or None, requests)."""
+    from repro_torch.client import Request
+    from repro_torch.sim import WorkloadConfig, generate
+    from repro_torch.sim.scenarios import build, get_scenario
+
+    sched = dyn = None
+    if name == "balanced":
+        wl = WorkloadConfig(n_requests=n, mix="balanced", congestion="medium")
+    else:
+        wl, sched, dyn, _ = build(get_scenario(name), n, n_ticks, 25.0,
+                                  limiter_classes=2, arrival_scale=scale)
+    batch, jitter = generate(wl, torch.Generator().manual_seed(seed),
+                             device="cpu", sched=sched)
+    a = [x.numpy() for x in batch]
+    j = jitter.numpy()
+    reqs = [Request(rid=i, prompt=None, max_new=float(a[3][i]),
+                    p50=float(a[4][i]), bucket=int(a[1][i]),
+                    p90=float(a[5][i]), cls=int(a[2][i]),
+                    arrival_s=float(a[0][i]) / 1e3, jitter=float(j[i]))
+            for i in range(batch.n)]
+    return batch, jitter, dyn, reqs
+
+
+_STATUS = {"pending": 0, "inflight": 1, "completed": 2, "rejected": 3,
+           "abandoned": 4}
+
+
+def session_parity_run(torch, d, case):
+    """The port's `ClientSession` over `MockProvider` (`from_scenario`
+    for a scenario) on `d`, `polls` virtual polls: the decision trace,
+    each request's status, bounces and finish time at the horizon, and,
+    on the card, `sched_score_topb` launches over the polls (counted
+    from 0 after the session's warm-up) and device-stepped polls."""
+    from repro_torch.client import ClientSession, MockProvider, SessionConfig
+    from repro_torch.core.policy import strategy
+    from repro_torch.kernels.sched_score import ops
+    from repro_torch.sim import default_physics
+    from repro_torch.sim.scenarios import get_scenario
+
+    name, seed, polls, window, scale, n = SESSION_PARITY[case]
+    _, _, _, reqs = session_requests(torch, name, seed, n, polls, scale)
+    phys = default_physics()
+    prov = (MockProvider(phys, dt_ms=25.0) if name == "balanced" else
+            MockProvider.from_scenario(get_scenario(name), n, polls, 25.0, 2,
+                                       arrival_scale=scale))
+    sess = ClientSession(prov, strategy("final_adrr_olc"),
+                         SessionConfig(window=window, max_grants=4,
+                                       dt_ms=25.0),
+                         clock="virtual", phys=phys, device=d)
+    prof = sess.enable_profiling()
+    for r in reqs:
+        sess.submit(r)
+    ops.reset_launches()
+    acts, rids, sevs = [], [], []
+    for _ in range(polls):
+        r = sess.poll()
+        acts.append(r.actions)
+        rids.append(r.req_rids)
+        sevs.append(r.severity)
+    launches = ops.LAUNCHES["sched_score_topb"]
+    out = sess.requests()
+    return dict(
+        actions=np.stack(acts), rids=np.stack(rids),
+        severity=np.asarray(sevs, np.float32),
+        status=np.asarray([_STATUS[r.status] for r in out], np.int32),
+        n_throttles=np.asarray([r.n_throttles for r in out], np.int32),
+        finish=np.asarray([np.float32(r.finish_s * 1e3) for r in out],
+                          np.float32),
+        n_throttled=np.asarray(sess.stats.n_throttled),
+        n_completed=np.asarray(sess.stats.n_completed),
+        launches=np.asarray(launches), stepped=np.asarray(prof["polls"]))
+
+
+def session_engine_run(torch, d, case):
+    """The port's windowed `run_sim` on the same batch and provider
+    schedules: its decision trace, and each request's status and bounces
+    at the last tick (read in `on_tick`)."""
+    from repro_torch.core.policy import strategy
+    from repro_torch.sim import SimConfig, default_physics, run_sim
+
+    name, seed, polls, window, scale, n = SESSION_PARITY[case]
+    batch, jitter, dyn, _ = session_requests(torch, name, seed, n, polls,
+                                             scale)
+    last = {}
+
+    def on_tick(t, state, win):
+        if t == polls - 1:
+            last["status"] = state.req.status.clone()
+            last["n_throttles"] = state.req.n_throttles.clone()
+            last["n_throttled"] = state.provider.n_throttled.clone()
+
+    final, (actions, req_idx, severity) = run_sim(
+        strategy("final_adrr_olc"), batch, jitter, default_physics(),
+        SimConfig(n_ticks=polls, k_slots=4, window=window), dyn,
+        collect_decisions=True, device=d, on_tick=on_tick)
+    return dict(actions=actions, rids=req_idx, severity=severity,
+                status=last["status"], n_throttles=last["n_throttles"],
+                n_throttled=last["n_throttled"], finish=final.req.finish_ms)
+
+
+def _np(x):
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def same_session(what, a, b, ids_live):
+    """Two runs' decision traces, severity bits, statuses and bounces at
+    the horizon, and completions' finish bits (`a` a session's)."""
+    check(np.array_equal(_np(a["actions"]), _np(b["actions"])),
+          f"{what}: actions differ")
+    live = ids_live
+    check(np.array_equal(_np(a["rids"])[live], _np(b["rids"])[live]),
+          f"{what}: the request of a live grant differs")
+    check(np.array_equal(_np(a["severity"]).view(np.int32),
+                         _np(b["severity"]).view(np.int32)),
+          f"{what}: severity bits differ")
+    check(np.array_equal(_np(a["status"]), _np(b["status"])),
+          f"{what}: statuses at the horizon differ")
+    check(np.array_equal(_np(a["n_throttles"]), _np(b["n_throttles"]))
+          and int(_np(a["n_throttled"])) == int(_np(b["n_throttled"])),
+          f"{what}: 429 bounces differ")
+    done = _np(a["status"]) == 2
+    check(np.array_equal(_np(a["finish"])[done].view(np.int32),
+                         _np(b["finish"])[done].view(np.int32)),
+          f"{what}: finish times of the completions differ")
+
+
+def recovery_run(torch, d, name):
+    """`name` from the registry at RECOVERY's size on `d`, with the
+    watchdog (`RECOVERY_RES`), polled until every request is terminal
+    (at most the cap): the figures the gates read, and on the card the
+    `sched_score_topb` launches over the polls (counted from 0 after the
+    session's warm-up)."""
+    from repro_torch.client import (ClientSession, MockProvider,
+                                    ResilienceConfig, SessionConfig)
+    from repro_torch.core.policy import final_adrr_olc
+    from repro_torch.kernels.sched_score import ops
+    from repro_torch.sim.scenarios import get_scenario
+
+    n, horizon, cap = RECOVERY
+    _, _, _, reqs = session_requests(torch, name, 0, n, horizon, 1.0)
+    prov = MockProvider.from_scenario(get_scenario(name), n, horizon, 25.0, 2)
+    sess = ClientSession(prov, final_adrr_olc(), SessionConfig(),
+                         clock="virtual",
+                         resilience=ResilienceConfig(**RECOVERY_RES),
+                         device=d)
+    for r in reqs:
+        sess.submit(r)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    polls = 0
+    while sess.unfinished and polls < cap:
+        sess.poll()
+        polls += 1
+    secs = time.perf_counter() - t0
+    out = sess.requests()
+    st = sess.stats
+    terminal = sum(r.status in ("completed", "abandoned", "rejected")
+                   for r in out)
+    return dict(
+        polls=polls, seconds=secs, polls_per_s=polls / secs,
+        launches=ops.LAUNCHES["sched_score_topb"],
+        completion=sum(r.status == "completed" for r in out) / len(out),
+        unfinished=sess.unfinished,
+        double_retires=st.n_completed + st.n_abandoned + st.n_rejected
+        - terminal,
+        resubmitted=st.n_resubmitted, gave_up=st.n_gave_up,
+        dup_discarded=st.n_dup_discarded, late_discarded=st.n_late_discarded,
+        throttled=st.n_throttled, dropped=prov.n_dropped, stuck=prov.n_stuck,
+        duped=prov.n_duped)
+
+
+def check_recovery(name, r, k):
+    """The reference's gates (`tests/test_faults.py`) on one run."""
+    what = f"session_recovery {name}"
+    check(r["dropped"] + r["stuck"] + r["duped"] > 0,
+          f"{what}: no fault fired")
+    check(r["completion"] >= 0.99 and r["unfinished"] == 0,
+          f"{what}: completion {r['completion']}, {r['unfinished']} "
+          f"unfinished after {r['polls']} polls")
+    check(r["double_retires"] == 0,
+          f"{what}: {r['double_retires']} double retires")
+    if r["dropped"] + r["stuck"]:
+        check(r["resubmitted"] > 0, f"{what}: the watchdog never resubmitted")
+    if name == "dup_storm":
+        check(r["dup_discarded"] > 0 and r["completion"] == 1.0,
+              f"{what}: dup_discarded {r['dup_discarded']}, completion "
+              f"{r['completion']}")
+    check(r["launches"] == (k + 1) * r["polls"],
+          f"{what}: {r['launches']} launches over {r['polls']} polls")
+
+
+def scale_session(torch, dev, n, w, b):
+    """`benchmarks/client_bench.py`'s throughput shape on the card: its
+    policy (`adaptive_drr`, overload control off, caps and timeouts
+    lifted) and fast physics (service far below a tick, so a poll's own
+    cost is what is measured), N requests all arrived at t = 0."""
+    from repro_torch.client import (ClientSession, MockProvider, Request,
+                                    SessionConfig)
+    from repro_torch.core.policy import strategy
+    from repro_torch.sim import default_physics
+
+    policy = strategy("adaptive_drr")._replace(
+        timeout_mult=torch.full((4,), 1e9),
+        class_cap=torch.full((2,), 1e9),
+        max_inflight=torch.tensor(1e9))
+    phys = default_physics(base_ms=1.0, ms_per_token=0.0,
+                           comfort_concurrency=1e9)
+    sess = ClientSession(MockProvider(phys, dt_ms=25.0), policy,
+                         SessionConfig(window=w, max_grants=b, dt_ms=25.0),
+                         clock="virtual", phys=phys, device=dev)
+    for i in range(n):
+        sess.submit(Request(rid=i, prompt=None, max_new=8.0, p50=8.0,
+                            bucket=i % 4, arrival_s=0.0))
+    return sess
+
+
+def phase_session(torch, dev):
+    """Phase 5f (module docstring)."""
+    import warnings
+
+    from repro_torch.kernels.sched_score import ops
+
+    k = 2
+    total = 0
+    t_phase = time.perf_counter()
+    cases = list(SESSION_PARITY)
+    beside = [n for n in SESSION_FAULTS if n != RECOVERY_APART]
+    # while this process runs the card's sessions, spawned processes run
+    # the CPU's sessions, the card's engine runs followed by two recovery
+    # runs, and the longest recovery run
+    cpu = Spawned("cpu", [(session_parity_run, (c,)) for c in cases])
+    engine = Spawned(dev.type, [(session_engine_run, (c,)) for c in cases]
+                     + [(recovery_run, (n,)) for n in beside])
+    apart = Spawned(dev.type, [(recovery_run, (RECOVERY_APART,))])
+    card = {}
+    for c in cases:
+        t0 = time.perf_counter()
+        card[c] = session_parity_run(torch, dev.type, c)
+        card[c]["seconds"] = time.perf_counter() - t0
+    cpu_out = cpu.result()
+    side_out = engine.result()
+    eng_out = side_out[:len(cases)]
+    recov = {n: r for n, (r, _) in zip(beside, side_out[len(cases):])}
+    ((recov[RECOVERY_APART], _),) = apart.result()
+    parity = {}
+    for c, (cres, csecs), (eres, esecs) in zip(cases, cpu_out, eng_out):
+        g = card[c]
+        polls = SESSION_PARITY[c][2]
+        live = _np(eres["actions"]) != -1
+        check(int(live.sum()) > 10, f"session {c}: an idle trace")
+        same_session(f"session {c}: card vs CPU", g, cres, live)
+        same_session(f"session {c}: card session vs card run_sim", g, eres,
+                     live)
+        stepped, launches = int(g["stepped"]), int(g["launches"])
+        check(launches == (k + 1) * stepped and stepped == polls,
+              f"session {c}: {launches} sched_score_topb launches over "
+              f"{stepped} device-stepped polls of {polls}, want "
+              f"{k + 1} a poll")
+        if c == "storm":
+            check(int(g["n_throttled"]) > 0,
+                  f"session {c}: the limiter never bounced")
+        total += launches
+        parity[c] = dict(
+            polls=polls, card_seconds=g["seconds"], cpu_seconds=csecs,
+            card_engine_seconds=esecs,
+            card_polls_per_s=polls / g["seconds"],
+            launches=launches, launches_per_poll=launches / polls,
+            completed=int(g["n_completed"]), n_throttled=int(g["n_throttled"]),
+            status_counts=np.bincount(g["status"], minlength=5).tolist())
+    emit(phase="session_parity", equal_to_cpu=True,
+         equal_to_card_run_sim=True, cases=parity)
+    for name in SESSION_FAULTS:
+        r = {key: (v.item() if isinstance(v, np.ndarray) else v)
+             for key, v in recov[name].items()}
+        recov[name] = r
+        check_recovery(name, r, k)
+        total += int(r["launches"])
+    emit(phase="session_recovery", n_requests=RECOVERY[0],
+         horizon_ticks=RECOVERY[1], cap_polls=RECOVERY[2], **RECOVERY_RES,
+         own_process=RECOVERY_APART, after_engine_runs=beside,
+         runs={n: recov[n] for n in SESSION_FAULTS},
+         seconds_parity_and_recovery=time.perf_counter() - t_phase)
+
+    n, w, b, k, n_untraced, n_traced, n_sync = SESSION_SCALE
+    t_build = time.perf_counter()
+    sess = scale_session(torch, dev, n, w, b)
+    build_s = time.perf_counter() - t_build
+    ops.reset_launches()
+    prof = sess.enable_profiling()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_untraced):
+        sess.poll()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    done_untraced = sess.stats.n_completed
+    breakdown = {kk: v / prof["polls"] * 1e3 for kk, v in prof.items()
+                 if kk != "polls"}
+    tp = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    tp.start()
+    t1 = time.perf_counter()
+    for _ in range(n_traced):
+        sess.poll()
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t1
+    tp.stop()
+    busy_us, n_ops, per_name = device_activity(torch, tp)
+    check(n_ops > 0, "session_scale: the trace shows no device work")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(n_sync):
+                sess.poll()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(x.message) for x in caught)
+    launches = ops.LAUNCHES["sched_score_topb"]
+    polls = n_untraced + n_traced + n_sync
+    check(launches == (k + 1) * prof["polls"] and prof["polls"] == polls,
+          f"session_scale: {launches} launches over {prof['polls']} "
+          f"device-stepped polls of {polls}")
+    check(sess.stats.n_completed > 0, "session_scale: nothing completed")
+    total += launches
+    wall_ms = traced_s * 1e3 / n_traced
+    busy_ms = busy_us / 1e3 / n_traced
+    rate_big = done_untraced / secs
+    small = scale_session(torch, dev, SESSION_SCALE_SMALL, w, b)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    small.drain(max_polls=20 * (SESSION_SCALE_SMALL // b + 50))
+    torch.cuda.synchronize()
+    small_s = time.perf_counter() - t2
+    check(small.stats.n_completed == SESSION_SCALE_SMALL,
+          f"session_scale: the N = {SESSION_SCALE_SMALL} run completed "
+          f"{small.stats.n_completed}")
+    rate_small = SESSION_SCALE_SMALL / small_s
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    emit(phase="session_scale", n_requests=n, window=w, max_grants=b,
+         classes=k, submit_seconds=build_s, untraced_polls=n_untraced,
+         untraced_seconds=secs, polls_per_s=n_untraced / secs,
+         completed_untraced=done_untraced,
+         completed=sess.stats.n_completed,
+         breakdown_ms_per_poll=breakdown,
+         traced_polls=n_traced, traced_wall_ms_per_poll=wall_ms,
+         traced_device_busy_ms_per_poll=busy_ms,
+         traced_device_idle_share=1.0 - busy_ms / wall_ms,
+         traced_device_ops_per_poll=n_ops / n_traced,
+         traced_top_device_us_per_poll=[[nm[:60], us / n_traced]
+                                        for nm, us in top],
+         sync_counted_polls=n_sync, syncs_per_poll=syncs / n_sync,
+         sched_score_topb_launches=launches,
+         small_n=SESSION_SCALE_SMALL, small_polls=small.stats.n_polls,
+         small_seconds=small_s,
+         per_request_rate=rate_big, small_per_request_rate=rate_small,
+         rate_ratio_big_over_small=rate_big / rate_small,
+         phase_seconds=time.perf_counter() - t_phase)
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -180,6 +180,42 @@ def init_fleet_state(p: int, n_classes: int, device: torch.device
     )
 
 
+def empty_window_batch(w: int, device: torch.device) -> RequestBatch:
+    """A (W,)-shaped all-empty batch view: the starting slot pool of a
+    streaming `ClientSession` (`repro_torch.client.session`).  Empty
+    slots are neutralized as the engine's `_window_view` neutralizes
+    unoccupied slots: valid=False (never eligible); the other fields
+    are don't-cares masked out of every decision path."""
+    f32 = torch.float32
+    return RequestBatch(
+        arrival_ms=torch.zeros((w,), dtype=f32, device=device),
+        bucket=torch.zeros((w,), dtype=torch.int32, device=device),
+        cls=torch.zeros((w,), dtype=torch.int32, device=device),
+        true_tokens=torch.ones((w,), dtype=f32, device=device),
+        p50=torch.ones((w,), dtype=f32, device=device),
+        p90=torch.ones((w,), dtype=f32, device=device),
+        deadline_budget_ms=torch.full((w,), 1e9, dtype=f32, device=device),
+        valid=torch.zeros((w,), dtype=torch.bool, device=device),
+    )
+
+
+def empty_window_request_state(w: int, device: torch.device
+                               ) -> RequestState:
+    """Matching (W,)-shaped request state for `empty_window_batch`:
+    empty slots are terminal (REJECTED, as the engine view's sentinel)
+    and never land (finish=inf), so retirement, eligibility and the
+    inflight recount never see them."""
+    f32, i32 = torch.float32, torch.int32
+    return RequestState(
+        status=torch.full((w,), REJECTED, dtype=i32, device=device),
+        submit_ms=torch.full((w,), float("inf"), dtype=f32, device=device),
+        finish_ms=torch.full((w,), float("inf"), dtype=f32, device=device),
+        defer_until=torch.zeros((w,), dtype=f32, device=device),
+        n_defers=torch.zeros((w,), dtype=i32, device=device),
+        n_throttles=torch.zeros((w,), dtype=i32, device=device),
+    )
+
+
 def init_window_carry(w: int, n: int, device: torch.device) -> WindowCarry:
     return WindowCarry(
         slot_req=torch.full((w,), n, dtype=torch.int32, device=device),

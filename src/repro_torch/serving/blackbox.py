@@ -2,9 +2,10 @@
 
 Counterpart of `repro.serving.blackbox.BlackBoxProvider`: the API the
 paper assumes its client sees, submit a request and get the completion,
-nothing of the internals.  The reference's `ScheduledClient` shim and
-the launcher need the client package, which the port does not carry yet
-(ROADMAP queue A6).
+nothing of the internals.  The port's client package
+(`repro_torch.client`: `ClientSession` over `MockProvider`) exists; the
+reference's `ScheduledClient` shim over this provider, its async adapter
+and the launcher are still to port (ROADMAP queue A6(b)).
 """
 from __future__ import annotations
 

@@ -40,6 +40,13 @@ BUCKET_TOKENS = torch.tensor(
 DEADLINE_BUDGET_MS = torch.tensor([3600.0, 11000.0, 35000.0, 100000.0],
                                   dtype=torch.float32)
 
+# Exact per-bucket p90/p50 quantile ratio of the realized token
+# distribution: tokens are log-uniform within [lo, hi], whose quantile
+# function is lo * (hi/lo)^q, so p90/p50 = (hi/lo)^0.4 (float32, the
+# reference's bits).  The live client's `default_p90` uses it.
+P90_OVER_P50 = (BUCKET_TOKENS[:, 1] / BUCKET_TOKENS[:, 0]) ** 0.4
+P90_OVER_P50_NP = P90_OVER_P50.numpy()
+
 MIXES = {
     "balanced": (0.50, 0.25, 0.15, 0.10),
     "heavy": (0.20, 0.20, 0.30, 0.30),

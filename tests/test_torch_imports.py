@@ -4,8 +4,9 @@
   `jax` or anything of the reference package `repro` (an AST walk, so
   imports inside functions count too).
 * Entry points default to CUDA and raise when no card is present,
-  unless the caller asks for the CPU: the simulator's and the serving
-  path's (`init_model`, `generate`, `BlackBoxProvider`).
+  unless the caller asks for the CPU: the simulator's, the serving
+  path's (`init_model`, `generate`, `BlackBoxProvider`) and the live
+  client's (`ClientSession`).
 * The fleet axis is exported under the reference's names
   (`repro_torch.core.routing`, the fleet types and schedules in
   `repro_torch.sim`), and its entry points run on CUDA by default too.
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch import bridge, device
+from repro_torch.client import ClientSession, MockProvider, SessionConfig
 from repro_torch.config import ServeConfig
 from repro_torch.configs import get_smoke
 from repro_torch.core.policy import strategy
@@ -95,6 +97,14 @@ def test_other_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_scenario_cell(strategy("final_adrr_olc"), "fleet_failover",
                           seeds=1, n_requests=8, sim_cfg=SimConfig(n_ticks=2))
+    # the live session: CUDA by default, the CPU only when asked
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClientSession(MockProvider(), strategy("final_adrr_olc"),
+                      SessionConfig(window=8), clock="virtual")
+    sess = ClientSession(MockProvider(), strategy("final_adrr_olc"),
+                         SessionConfig(window=8), clock="virtual",
+                         device="cpu")
+    assert sess.device == torch.device("cpu")
 
 
 def test_fleet_names_match_the_reference():
