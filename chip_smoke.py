@@ -20,11 +20,14 @@ the scale run's size.  Each path is driven with every
 kernel's launch count set to 0 just before it and read just after; the
 kernels line carries each kernel's launches summed over the paths.
 The live client session runs the same scheduler through its
-`ClientSession` against a `MockProvider` (phase 5f).
+`ClientSession` against a `MockProvider` (phase 5f) and a fleet of them
+behind `FleetProvider` (5g, 5h), and, in the paper's deployment, in
+front of the served StableLM behind `AsyncBlackBoxProvider` while the
+model's worker threads run its attention kernels (7b).
 Each phase prints one JSON line; any failure raises and the script
 exits non-zero.  `--only=session` (or another name of `SELECTABLE`,
-comma-separated) runs just those scheduler phases after the build, as
-a rehearsal: it prints no kernels line and no result line.  The last lines are the card (as nvidia-smi reports
+comma-separated) runs just those phases after the build, as a
+rehearsal: it prints no kernels line and no result line.  The last lines are the card (as nvidia-smi reports
 it), one JSON line of kernel measurements, and the result line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -134,6 +137,24 @@ Phases:
      CPU sessions, the card's engine runs and the recovery runs go on in
      spawned processes while this one runs the card's sessions; the
      scale run starts after all of them have ended;
+ 5g. fleet_session: `ClientSession` in virtual time over
+     `FleetProvider.from_fleet_scenario` for `fleet_failover` and
+     `fleet_skew` (P = 4, N = 160 at 4x the rate, W = 256, B = 4, the
+     arrival span plus 800 polls), on the card and on the CPU: equal
+     actions, the request of every live grant, severity bits, statuses,
+     bounces, finish bits, `n_routed` after every poll and `n_refused`;
+     (K+1) `sched_score_topb` launches a poll; `fleet_failover` routes
+     nothing to endpoint 0 inside its fail window while what endpoint 0
+     held drains; `fleet_skew` routes the most to its fast endpoint; a
+     one-endpoint fleet over 5f's `balanced` seed-0 provider equal to the
+     bare provider's session and to the card's windowed `run_sim`.  It
+     times no rate, so it runs beside phase 4's processes;
+ 5h. fleet_session_scale: a session over `fleet_failover`'s four
+     endpoints (the schedules of 5g, fast physics with comfort 4) at
+     W = 4096, B = 16, K = 2, 100,000 requests arrived at t = 0, 600
+     timed polls and 20 under `torch.cuda.set_sync_debug_mode`: (K+1)
+     launches a poll, nothing routed to endpoint 0 inside its window,
+     polls/s, the `enable_profiling` split, `n_routed`, syncs a poll;
   6. attention_kernels: `flash_attention` and `decode_attention` against
      their plain versions on the card at StableLM-2-1.6B's geometry
      (H = KV = 32, hd = 64, bf16; flash also at B = 4 and with fewer
@@ -157,6 +178,22 @@ Phases:
      and teacher-forced decode logits on the kernels are held against
      the plain versions on the card; prefill and decode times, tokens/s
      and peak memory are reported;
+ 7b. deployment: phase 7's model, still on the card, behind the client
+     scheduler.  Run 1 is the launcher's path: `launch.serve.main`
+     (`make_requests(12, seed=0)`, `ScheduledClient`, a wall-clock
+     `ClientSession`, `AsyncBlackBoxProvider` with 4 workers,
+     `BlackBoxProvider`, `ServeConfig(max_seq=128, temperature=0)`).
+     Run 2 is `examples/serve_blackbox.py`'s flow: a `ClientSession`
+     over `AsyncBlackBoxProvider(max_inflight=2)`, 16 requests, the
+     session's clock at 2x the wall's.  Every request terminal, nothing
+     left in flight, every completed output `max_new` tokens equal to
+     the same prompt's sequential `submit` afterwards; two generations
+     at once at least once, run 2 throttled; exactly 24
+     `flash_attention` launches a generation started and 24
+     `decode_attention` a decode step (the worker threads' launches),
+     and (K+1) `sched_score_topb` a device-stepped poll; completed and
+     rejected counts, latency mean and P95, tokens/s across the workers,
+     polls and the `enable_profiling` split printed;
   8. ssd_kernel: `ssd_intra` against its plain version on the card at
      the serve runs' shapes (Mamba2-780M: H = 48, P = 64, N = 128, a
      1024-, 8-, 37- and 300-token prompt and a batch of 4 x 256;
@@ -211,7 +248,10 @@ SELECTABLE = {"paper_cell": "phase_paper_cell", "tables": "phase_tables",
               "scenarios": "phase_scenarios",
               "scenario_scale": "phase_scenario_scale",
               "fleet": "phase_fleet", "fleet_scale": "phase_fleet_scale",
-              "session": "phase_session"}
+              "session": "phase_session",
+              "fleet_session": "phase_fleet_session",
+              "fleet_session_scale": "phase_fleet_session_scale",
+              "deployment": "phase_deployment"}
 
 
 def emit(**kw):
@@ -284,16 +324,24 @@ def main() -> None:
     tables = timed("tables", phase_tables)
     scenarios = timed("scenarios", phase_scenarios)
     fleet = timed("fleet", phase_fleet)
+    fleet_session = timed("fleet_session", phase_fleet_session)
     # the wait for phase 4's end
     cell_launches = timed("paper_cell", phase_paper_cell, paper_cell)
     scenario_scale = timed("scenario_scale", phase_scenario_scale)
     fleet_scale = timed("fleet_scale", phase_fleet_scale)
     session = timed("session", phase_session)
-    # the scheduler's main-path launches: the scale run and these six
+    fleet_session_scale = timed("fleet_session_scale",
+                                phase_fleet_session_scale)
+    # the scheduler's main-path launches: the scale run and these eight
     kernels["sched_score_topb"]["launches"] += (
-        tables + scenarios + scenario_scale + fleet + fleet_scale + session)
+        tables + scenarios + scenario_scale + fleet + fleet_scale + session
+        + fleet_session + fleet_session_scale)
     kernels.update(timed("attention_kernels", phase_attention_kernels))
-    served = timed("serve", phase_serve, kernels)
+    keep = {}
+    served = timed("serve", phase_serve, kernels, keep)
+    # phase 7's model, still on the card, behind the client scheduler
+    deployed = timed("deployment", phase_deployment, kernels,
+                     keep.pop("model"))
     kernels.update(timed("ssd_kernel", phase_ssd_kernel, ssd_per_call))
     served_ssm = timed("serve_ssm", phase_serve_ssm, kernels)
     served_hybrid = timed("serve_hybrid", phase_serve_hybrid, kernels)
@@ -306,8 +354,9 @@ def main() -> None:
                    "decode_attention", "ssd_intra")])
     check(cell_launches > 0 and scale > 0 and tables > 0 and scenarios > 0
           and scenario_scale > 0 and fleet > 0 and fleet_scale > 0
-          and session > 0 and served > 0 and served_ssm > 0 and served_hybrid > 0,
-          "main path launched no kernel")
+          and session > 0 and fleet_session > 0 and fleet_session_scale > 0
+          and served > 0 and deployed > 0 and served_ssm > 0
+          and served_hybrid > 0, "main path launched no kernel")
     emit(ok=True, device={"platform": "gpu", "kind": kind,
                           "count": torch.cuda.device_count()})
 
@@ -1624,16 +1673,19 @@ _STATUS = {"pending": 0, "inflight": 1, "completed": 2, "rejected": 3,
            "abandoned": 4}
 
 
-def session_parity_run(torch, d, case):
+def session_parity_run(torch, d, case, one_endpoint_fleet=False):
     """The port's `ClientSession` over `MockProvider` (`from_scenario`
     for a scenario) on `d`, `polls` virtual polls: the decision trace,
     each request's status, bounces and finish time at the horizon, and,
     on the card, `sched_score_topb` launches over the polls (counted
-    from 0 after the session's warm-up) and device-stepped polls."""
-    from repro_torch.client import ClientSession, MockProvider, SessionConfig
+    from 0 after the session's warm-up) and device-stepped polls.  With
+    `one_endpoint_fleet` the provider sits behind a `FleetProvider` of
+    one endpoint (phase 5g)."""
+    from repro_torch.client import (ClientSession, FleetProvider,
+                                    MockProvider, SessionConfig)
     from repro_torch.core.policy import strategy
     from repro_torch.kernels.sched_score import ops
-    from repro_torch.sim import default_physics
+    from repro_torch.sim import FleetPhysics, default_physics
     from repro_torch.sim.scenarios import get_scenario
 
     name, seed, polls, window, scale, n = SESSION_PARITY[case]
@@ -1642,6 +1694,8 @@ def session_parity_run(torch, d, case):
     prov = (MockProvider(phys, dt_ms=25.0) if name == "balanced" else
             MockProvider.from_scenario(get_scenario(name), n, polls, 25.0, 2,
                                        arrival_scale=scale))
+    if one_endpoint_fleet:
+        prov = FleetProvider([prov], FleetPhysics(*(a[None] for a in phys)))
     sess = ClientSession(prov, strategy("final_adrr_olc"),
                          SessionConfig(window=window, max_grants=4,
                                        dt_ms=25.0),
@@ -1958,6 +2012,256 @@ def phase_session(torch, dev):
          rate_ratio_big_over_small=rate_big / rate_small,
          phase_seconds=time.perf_counter() - t_phase)
     return total
+
+
+# ---------------------------------------------------------------------------
+# 5g. the live fleet: a session over FleetProvider, card against CPU
+# ---------------------------------------------------------------------------
+
+# the fleet sessions' cells: 5d's size (N = 160 at 4x, W = 256, B = 4,
+# the arrival span plus 800 polls); the P = 1 case is 5f's first
+FLEET_SESSIONS = ("fleet_failover", "fleet_skew")
+FLEET_SESSION_N, FLEET_SESSION_RATE = 160, 4.0
+FLEET_SESSION_P1 = "balanced_s0"
+
+
+def fleet_session_run(torch, d, name):
+    """The port's `ClientSession` in virtual time over
+    `FleetProvider.from_fleet_scenario(name)` on `d`: the decision trace,
+    each request's status, bounces and finish time at the horizon, the
+    adapter's `n_routed` after every poll, endpoint 0's outstanding count
+    and whether it was down at every poll, `n_refused`, and on the card
+    the `sched_score_topb` launches over the polls and device-stepped
+    polls."""
+    from repro_torch.client import ClientSession, FleetProvider, SessionConfig
+    from repro_torch.core.policy import strategy
+    from repro_torch.kernels.sched_score import ops
+    from repro_torch.sim.scenarios import get_scenario
+
+    n, scale = FLEET_SESSION_N, FLEET_SESSION_RATE
+    sc = get_scenario(name)
+    polls = scenario_cfg(sc, n, scale).n_ticks
+    _, _, _, reqs = session_requests(torch, name, 0, n, polls, scale)
+    fp = FleetProvider.from_fleet_scenario(sc, n, polls, 25.0, 2,
+                                           arrival_scale=scale)
+    sess = ClientSession(fp, strategy("final_adrr_olc"),
+                         SessionConfig(window=256, max_grants=4, dt_ms=25.0),
+                         clock="virtual", device=d)
+    prof = sess.enable_profiling()
+    for r in reqs:
+        sess.submit(r)
+    ops.reset_launches()
+    acts, rids, sevs, routed, ep0, down = [], [], [], [], [], []
+    for _ in range(polls):
+        r = sess.poll()
+        acts.append(r.actions)
+        rids.append(r.req_rids)
+        sevs.append(r.severity)
+        routed.append(fp.n_routed.copy())
+        ep0.append(fp.inflight_by_endpoint()[0])
+        row = fp._avail_row(r.now_ms)
+        down.append(row is not None and row[0] < 0.5)
+    launches = ops.LAUNCHES["sched_score_topb"]
+    out = sess.requests()
+    return dict(
+        actions=np.stack(acts), rids=np.stack(rids),
+        severity=np.asarray(sevs, np.float32),
+        status=np.asarray([_STATUS[r.status] for r in out], np.int32),
+        n_throttles=np.asarray([r.n_throttles for r in out], np.int32),
+        finish=np.asarray([np.float32(r.finish_s * 1e3) for r in out],
+                          np.float32),
+        n_throttled=np.asarray(sess.stats.n_throttled),
+        n_completed=np.asarray(sess.stats.n_completed),
+        routed=np.stack(routed), ep0_inflight=np.asarray(ep0),
+        ep0_down=np.asarray(down), n_refused=np.asarray(fp.n_refused),
+        launches=np.asarray(launches), stepped=np.asarray(prof["polls"]),
+        polls=np.asarray(polls))
+
+
+def phase_fleet_session(torch, dev):
+    """Phase 5g (module docstring)."""
+    k = 2
+    total = 0
+    t_phase = time.perf_counter()
+    # while this process runs the first fleet session and the P = 1
+    # fleet on the card, spawned processes run the CPU's fleet sessions,
+    # the card's second fleet session and the P = 1 case's engine run,
+    # and the P = 1 case's bare session on the card
+    here, rest = FLEET_SESSIONS[0], FLEET_SESSIONS[1:]
+    cpu = Spawned("cpu", [(fleet_session_run, (nm,))
+                          for nm in FLEET_SESSIONS])
+    side = Spawned(dev.type, [(fleet_session_run, (nm,)) for nm in rest]
+                   + [(session_engine_run, (FLEET_SESSION_P1,))])
+    apart = Spawned(dev.type, [(session_parity_run, (FLEET_SESSION_P1,))])
+    t0 = time.perf_counter()
+    card = {here: fleet_session_run(torch, dev.type, here)}
+    card[here]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = session_parity_run(torch, dev.type, FLEET_SESSION_P1,
+                             one_endpoint_fleet=True)
+    one_s = time.perf_counter() - t0
+    cpu_out = cpu.result()
+    side_out = side.result()
+    for nm, (g, secs) in zip(rest, side_out):
+        card[nm] = dict(g, seconds=secs)
+    ((eng, _),) = side_out[len(rest):]
+    ((bare, _),) = apart.result()
+    cells = {}
+    for nm, (c, csecs) in zip(FLEET_SESSIONS, cpu_out):
+        g = card[nm]
+        polls = int(g["polls"])
+        live = g["actions"] != -1
+        check(int(live.sum()) > 10, f"fleet_session {nm}: an idle trace")
+        same_session(f"fleet_session {nm}: card vs CPU", g, c, live)
+        check(np.array_equal(g["routed"], _np(c["routed"]))
+              and int(g["n_refused"]) == int(_np(c["n_refused"])),
+              f"fleet_session {nm}: n_routed or n_refused differ between "
+              f"card and CPU")
+        stepped, launches = int(g["stepped"]), int(g["launches"])
+        check(launches == (k + 1) * stepped and stepped == polls,
+              f"fleet_session {nm}: {launches} sched_score_topb launches "
+              f"over {stepped} device-stepped polls of {polls}")
+        routed = g["routed"]
+        row = dict(polls=polls, card_seconds=g["seconds"],
+                   cpu_seconds=csecs, card_polls_per_s=polls / g["seconds"],
+                   launches=launches, n_routed=routed[-1].tolist(),
+                   n_refused=int(g["n_refused"]),
+                   completed=int(g["n_completed"]),
+                   status_counts=np.bincount(g["status"],
+                                             minlength=5).tolist())
+        if nm == "fleet_failover":
+            down = np.nonzero(g["ep0_down"])[0]
+            check(down.size > 0, f"fleet_session {nm}: the fail window "
+                  f"misses the run")
+            first, last = int(down[0]), int(down[-1])
+            r0 = routed[:, 0]
+            check(r0[last] == r0[first - 1] > 0,
+                  f"fleet_session {nm}: n_routed[0] went from "
+                  f"{r0[first - 1]} to {r0[last]} inside the fail window "
+                  f"(polls {first}-{last})")
+            ep0 = g["ep0_inflight"]
+            check(ep0[first - 1] > 0 and ep0[last] == 0,
+                  f"fleet_session {nm}: endpoint 0 held {ep0[first - 1]} "
+                  f"at the window's start and {ep0[last]} at its end")
+            check(r0[-1] > r0[last], f"fleet_session {nm}: endpoint 0 took "
+                  f"nothing after its window")
+            row.update(fail_polls=[first, last],
+                       ep0_inflight_at_fail=int(ep0[first - 1]),
+                       ep0_routed_in_window=int(r0[last] - r0[first - 1]))
+        if nm == "fleet_skew":
+            check(int(np.argmax(routed[-1])) == 0,
+                  f"fleet_session {nm}: n_routed {routed[-1].tolist()}, "
+                  f"want the most on endpoint 0 (speed 0.5)")
+        total += launches
+        cells[nm] = row
+    live = _np(eng["actions"]) != -1
+    check(int(live.sum()) > 10, "fleet_session P = 1: an idle trace")
+    same_session("fleet_session P = 1: fleet vs bare child", one, bare, live)
+    same_session("fleet_session P = 1: fleet vs card run_sim", one, eng,
+                 live)
+    for r in (one, bare):
+        check(int(r["launches"]) == (k + 1) * int(r["stepped"]),
+              f"fleet_session P = 1: {int(r['launches'])} launches over "
+              f"{int(r['stepped'])} polls")
+        total += int(r["launches"])
+    emit(phase="fleet_session", n_requests=FLEET_SESSION_N,
+         arrival_scale=FLEET_SESSION_RATE, window=256, max_grants=4,
+         endpoints=4, equal_to_cpu=True, cells=cells,
+         p1=dict(case=FLEET_SESSION_P1, polls=SESSION_PARITY[
+             FLEET_SESSION_P1][2], equal_to_bare_child=True,
+             equal_to_card_run_sim=True, card_seconds=one_s,
+             completed=int(one["n_completed"])),
+         sched_score_topb_launches=total,
+         phase_seconds=time.perf_counter() - t_phase)
+    return total
+
+
+# the fleet session at scale: N, W, B, K, timed polls, sync-counted polls;
+# the endpoints' schedules are 5g's `fleet_failover` (the span of N = 160
+# at 4x), so the fail window lies inside the timed polls
+FLEET_SESSION_SCALE = (100_000, 4096, 16, 2, 600, 20)
+
+
+def phase_fleet_session_scale(torch, dev):
+    """5g's scale run: a session over `fleet_failover`'s four endpoints
+    (fast physics, comfort 4, so that routing spreads) at W = 4096,
+    B = 16, N requests arrived at t = 0, under `scale_session`'s policy;
+    untraced."""
+    import warnings
+
+    from repro_torch.client import (ClientSession, FleetProvider, Request,
+                                    SessionConfig)
+    from repro_torch.core.policy import strategy
+    from repro_torch.kernels.sched_score import ops
+    from repro_torch.sim import default_physics
+    from repro_torch.sim.scenarios import get_scenario
+
+    n, w, b, k, n_timed, n_sync = FLEET_SESSION_SCALE
+    t_phase = time.perf_counter()
+    policy = strategy("adaptive_drr")._replace(
+        timeout_mult=torch.full((4,), 1e9),
+        class_cap=torch.full((2,), 1e9),
+        max_inflight=torch.tensor(1e9))
+    phys = default_physics(base_ms=1.0, ms_per_token=0.0)
+    polls = n_timed + n_sync
+    fp = FleetProvider.from_fleet_scenario(
+        get_scenario("fleet_failover"), FLEET_SESSION_N, polls, 25.0, k,
+        phys=phys, arrival_scale=FLEET_SESSION_RATE)
+    sess = ClientSession(fp, policy,
+                         SessionConfig(window=w, max_grants=b, dt_ms=25.0),
+                         clock="virtual", phys=phys, device=dev)
+    t0 = time.perf_counter()
+    for i in range(n):
+        sess.submit(Request(rid=i, prompt=None, max_new=8.0, p50=8.0,
+                            bucket=i % 4, arrival_s=0.0))
+    submit_s = time.perf_counter() - t0
+    ops.reset_launches()
+    prof = sess.enable_profiling()
+    routed0, down = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        r = sess.poll()
+        routed0.append(int(fp.n_routed[0]))
+        row = fp._avail_row(r.now_ms)
+        down.append(bool(row[0] < 0.5))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    breakdown = {kk: v / prof["polls"] * 1e3 for kk, v in prof.items()
+                 if kk != "polls"}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(n_sync):
+                sess.poll()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(x.message) for x in caught)
+    launches = ops.LAUNCHES["sched_score_topb"]
+    check(launches == (k + 1) * prof["polls"] and prof["polls"] == polls,
+          f"fleet_session_scale: {launches} launches over {prof['polls']} "
+          f"device-stepped polls of {polls}")
+    idx = np.nonzero(down)[0]
+    check(idx.size > 0, "fleet_session_scale: the fail window misses the "
+          "timed polls")
+    first, last = int(idx[0]), int(idx[-1])
+    check(routed0[last] == routed0[first - 1],
+          f"fleet_session_scale: n_routed[0] went from {routed0[first - 1]} "
+          f"to {routed0[last]} inside the fail window")
+    check(bool((fp.n_routed > 0).all()) and sess.stats.n_completed > 0,
+          f"fleet_session_scale: n_routed {fp.n_routed.tolist()}, "
+          f"{sess.stats.n_completed} completed")
+    emit(phase="fleet_session_scale", scenario="fleet_failover",
+         n_requests=n, window=w, max_grants=b, classes=k, endpoints=fp.p,
+         submit_seconds=submit_s, timed_polls=n_timed, timed_seconds=secs,
+         polls_per_s=n_timed / secs, breakdown_ms_per_poll=breakdown,
+         fail_polls=[first, last], n_routed=fp.n_routed.tolist(),
+         n_refused=fp.n_refused, completed=sess.stats.n_completed,
+         sync_counted_polls=n_sync, syncs_per_poll=syncs / n_sync,
+         sched_score_topb_launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2295,7 +2599,8 @@ def launch_counters():
 
 
 def serve_model(torch, dev, kernels, *, phase, arch, max_seq, requests, rng,
-                batch_shape, per_prompt, per_step, trace_request):
+                batch_shape, per_prompt, per_step, trace_request,
+                keep=None):
     """Build `arch` at full width in bf16 from a seeded CUDA generator,
     answer `requests` through `BlackBoxProvider.submit` and one batch of
     `batch_shape` (B, prompt tokens, max_new; tokens drawn from `rng`)
@@ -2308,7 +2613,8 @@ def serve_model(torch, dev, kernels, *, phase, arch, max_seq, requests, rng,
     the e <= 2f, g <= SERVE_BF16_F32_RATIO * f rule), times prefill,
     decode and the batch, traces decode steps after
     requests[trace_request], emits one line and adds the launches to
-    `kernels`.  Returns the number of launches."""
+    `kernels`.  Returns the number of launches; with `keep` (a dict) the
+    model stays on the card as `keep["model"]`."""
     from repro_torch.config import ServeConfig
     from repro_torch.configs import get
     from repro_torch.models import Model, decode_step, init_model, prefill
@@ -2476,11 +2782,13 @@ def serve_model(torch, dev, kernels, *, phase, arch, max_seq, requests, rng,
          logit_max_abs_err_f32=err["float32"], f32_tolerance=SERVE_F32_TOL,
          decode_trace=trace, greedy_replay_equal=replay_equal,
          greedy_replay_total=sum(m for _, m in requests) + B * new_b)
+    if keep is not None:
+        keep["model"] = model
     del provider, model
     return sum(launches.values())
 
 
-def phase_serve(torch, dev, kernels):
+def phase_serve(torch, dev, kernels, keep=None):
     """stablelm-1.6b: 24 flash_attention launches a prompt, 24
     decode_attention launches a decode step, no ssd_intra."""
     from repro_torch.configs import get
@@ -2492,7 +2800,243 @@ def phase_serve(torch, dev, kernels):
         torch, dev, kernels, phase="serve", arch=SERVE_ARCH, max_seq=2048,
         requests=requests, rng=rng, batch_shape=SERVE_BATCH,
         per_prompt={"flash_attention": L}, per_step={"decode_attention": L},
-        trace_request=2)
+        trace_request=2, keep=keep)
+
+
+# ---------------------------------------------------------------------------
+# 7b. the paper's deployment: the scheduler in front of the served model
+# ---------------------------------------------------------------------------
+
+# run 1: the launcher's requests; run 2: `examples/serve_blackbox.py`'s
+# flow (16 requests, a provider that 429s past two in flight, the
+# session's clock at twice the wall's)
+DEPLOY_RUN1 = 12
+DEPLOY_RUN2 = (16, 2, 2.0)   # requests, max_inflight, time_scale
+
+
+class Recorder:
+    """A blocking provider's `submit` seen from inside the black box:
+    every generation's prompt, max_new and output, and the most
+    generations that ran at once."""
+
+    def __init__(self, provider):
+        import threading
+
+        self.provider = provider
+        self.lock = threading.Lock()
+        self.calls = []
+        self.running = 0
+        self.peak = 0
+
+    def submit(self, prompt, max_new):
+        with self.lock:
+            self.running += 1
+            self.peak = max(self.peak, self.running)
+        try:
+            out = self.provider.submit(prompt, max_new)
+        finally:
+            with self.lock:
+                self.running -= 1
+        with self.lock:
+            self.calls.append((np.asarray(prompt).copy(), int(max_new), out))
+        return out
+
+
+def recording_session(sessions):
+    """A `ClientSession` that counts `sched_score_topb` from the end of
+    its warm-up, turns on `enable_profiling` and adds itself to
+    `sessions`: put in `repro_torch.serving.blackbox`'s namespace, it
+    lets the check read the session `ScheduledClient.run` builds."""
+    from repro_torch.client import ClientSession
+    from repro_torch.kernels.sched_score import ops
+
+    class RecordingSession(ClientSession):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            ops.reset_launches()
+            self.prof = self.enable_profiling()
+            sessions.append(self)
+
+    return RecordingSession
+
+
+def deployment_summary(what, reqs, rec, sess, prof, secs, L, counts):
+    """One run's checks and figures: every request terminal, nothing in
+    flight, `flash_attention` 24 a generation started, `decode_attention`
+    24 a decode step, `sched_score_topb` K + 1 a device-stepped poll."""
+    from repro_torch.kernels.sched_score import ops as sched_ops
+
+    k = 2
+    names = [r.status for r in reqs]
+    check(all(st in ("completed", "rejected", "abandoned") for st in names),
+          f"deployment {what}: statuses {names}")
+    check(sess.provider.inflight() == 0 and sess.unfinished == 0,
+          f"deployment {what}: {sess.provider.inflight()} left in flight")
+    gens = len(rec.calls)
+    steps = sum(m - 1 for _, m, _ in rec.calls)
+    want = {"flash_attention": L * gens, "decode_attention": L * steps}
+    for name, n in want.items():
+        check(counts[name] == n, f"deployment {what}: {counts[name]} {name} "
+              f"launches, want {n} ({gens} generations, {steps} decode "
+              f"steps)")
+    polls = prof["polls"]
+    sched = sched_ops.LAUNCHES["sched_score_topb"]
+    check(polls > 0 and sched == (k + 1) * polls,
+          f"deployment {what}: {sched} sched_score_topb launches over "
+          f"{polls} device-stepped polls")
+    done = [r for r in reqs if r.status == "completed"]
+    lat = np.asarray([r.finish_s - r.arrival_s for r in done])
+    tokens = sum(m for _, m, _ in rec.calls)
+    return dict(
+        requests=len(reqs), completed=len(done),
+        rejected=names.count("rejected"), abandoned=names.count("abandoned"),
+        latency_mean_s=float(lat.mean()) if len(lat) else None,
+        latency_p95_s=float(np.percentile(lat, 95)) if len(lat) else None,
+        generations=gens, tokens=tokens, seconds=secs,
+        tokens_per_s=tokens / secs, peak_generations_at_once=rec.peak,
+        session_peak_inflight=sess.stats.peak_inflight,
+        polls=sess.stats.n_polls, device_stepped_polls=polls,
+        idle_sleeps=sess.stats.n_idle_sleeps,
+        throttled=sess.stats.n_throttled,
+        breakdown_ms_per_poll={kk: v / polls * 1e3
+                               for kk, v in prof.items() if kk != "polls"},
+        flash_attention_launches=counts["flash_attention"],
+        decode_attention_launches=counts["decode_attention"],
+        sched_score_topb_launches=sched)
+
+
+def phase_deployment(torch, dev, kernels=None, model=None):
+    """Phase 7b (module docstring).  `model` is phase 7's StableLM when it
+    is still on the card; else (`--only=deployment`) it is built as phase
+    7 builds it."""
+    import warnings
+    from unittest import mock
+
+    from repro_torch.client import (AsyncBlackBoxProvider, ClientSession,
+                                    SessionConfig)
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get
+    from repro_torch.core.policy import strategy
+    from repro_torch.kernels.sched_score import ops as sched_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    from repro_torch.serving import BlackBoxProvider
+    from repro_torch.serving import blackbox as serving_blackbox
+
+    t_phase = time.perf_counter()
+    counters = launch_counters()
+    if model is None:
+        model = init_model(get(SERVE_ARCH),
+                           torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    L = model.cfg.n_layers
+    sc = ServeConfig(max_seq=128, temperature=0.0)
+    engine = BlackBoxProvider(model, sc, device=dev)
+    engine.submit(np.zeros(8, np.int32), 2)   # first calls' set-up
+    torch.cuda.synchronize()
+
+    def counts():
+        return {nm: counters[nm].LAUNCHES[nm]
+                for nm in ("flash_attention", "decode_attention")}
+
+    def reset():
+        for nm in ("flash_attention", "decode_attention"):
+            counters[nm].reset_launches()
+
+    # run 1: the launcher's main, its model the one on the card, its
+    # provider seen through a Recorder and its session recorded
+    made, sessions = [], []
+
+    def recorded_provider(m, s, device):
+        made.append(Recorder(BlackBoxProvider(m, s, device=device)))
+        return made[-1]
+
+    reset()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        with mock.patch.object(serve, "build_model", lambda a, d: model), \
+                mock.patch.object(serve, "BlackBoxProvider",
+                                  recorded_provider), \
+                mock.patch.object(serving_blackbox, "ClientSession",
+                                  recording_session(sessions)):
+            reqs1 = serve.main(["--arch", SERVE_ARCH, "--requests",
+                                str(DEPLOY_RUN1), "--device", dev.type])
+    torch.cuda.synchronize()
+    secs1 = time.perf_counter() - t0
+    check(len(sessions) == 1 and len(made) == 1,
+          f"deployment run 1: {len(sessions)} sessions, {len(made)} "
+          f"providers")
+    rec1 = made[0]
+    run1 = deployment_summary("run 1", reqs1, rec1, sessions[0],
+                              sessions[0].prof, secs1, L, counts())
+
+    # run 2: a ClientSession over AsyncBlackBoxProvider(max_inflight=2)
+    n2, cap2, scale2 = DEPLOY_RUN2
+    rec2 = Recorder(engine)
+    prov2 = AsyncBlackBoxProvider(rec2, max_workers=4, max_inflight=cap2)
+    policy = strategy("final_adrr_olc")._replace(
+        timeout_mult=torch.full((4,), 30.0, dtype=torch.float32))
+    sess2 = ClientSession(prov2, policy,
+                          SessionConfig(window=max(32, n2), max_grants=4,
+                                        time_scale=scale2),
+                          clock="wall", device=dev)
+    sched_ops.reset_launches()
+    prof2 = sess2.enable_profiling()
+    reset()
+    t0 = time.perf_counter()
+    try:
+        for r in serve.make_requests(n2, seed=0):
+            sess2.submit(r)
+        reqs2 = sess2.drain()
+    finally:
+        prov2.shutdown()
+    torch.cuda.synchronize()
+    secs2 = time.perf_counter() - t0
+    run2 = deployment_summary("run 2", reqs2, rec2, sess2, prof2, secs2, L,
+                              counts())
+    check(prov2.n_throttled > 0 and sess2.stats.n_throttled > 0,
+          f"deployment run 2: never throttled (max_inflight {cap2})")
+    check(max(rec1.peak, rec2.peak) > 1,
+          f"deployment: no two generations ran at once (peaks {rec1.peak}, "
+          f"{rec2.peak})")
+
+    # the tokens: each completed output against the same prompt's
+    # sequential submit on the card
+    t0 = time.perf_counter()
+    n_equal = 0
+    for reqs in (reqs1, reqs2):
+        for r in reqs:
+            if r.status != "completed":
+                continue
+            check(r.output is not None and r.output.shape == (r.max_new,),
+                  f"deployment: request {r.rid} answered "
+                  f"{None if r.output is None else r.output.shape} for "
+                  f"max_new {r.max_new}")
+            want = engine.submit(r.prompt, r.max_new)
+            check(np.array_equal(r.output, want),
+                  f"deployment: request {r.rid}'s tokens differ from its "
+                  f"sequential submit: {r.output.tolist()} vs "
+                  f"{want.tolist()}")
+            n_equal += 1
+    replay_s = time.perf_counter() - t0
+    check(n_equal > 0, "deployment: nothing completed")
+    total = {nm: run1[f"{nm}_launches"] + run2[f"{nm}_launches"]
+             for nm in ("flash_attention", "decode_attention",
+                        "sched_score_topb")}
+    if kernels is not None:
+        for nm, v in total.items():
+            kernels[nm]["launches"] += v
+    emit(phase="deployment", arch=model.cfg.name, dtype=model.cfg.dtype,
+         max_seq=sc.max_seq, run1=dict(path="launch.serve.main -> "
+                                       "ScheduledClient", **run1),
+         run2=dict(path="ClientSession -> AsyncBlackBoxProvider",
+                   max_inflight=cap2, time_scale=scale2, **run2),
+         outputs_equal_sequential=n_equal, replay_seconds=replay_s,
+         phase_seconds=time.perf_counter() - t_phase)
+    del engine, model
+    return sum(total.values())
+
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """The streaming client: the paper's scheduler at a black-box boundary.
 
-Counterpart of `repro.client`, for what the port carries so far:
-`ClientSession` runs the three-layer scheduler as an open-ended
-submit/poll/drain session over the `AsyncProvider` boundary, and
-`MockProvider` replays the simulator's provider dynamics (with fault
-injection) behind it.  The fleet client, the black-box adapter and
-`ScheduledClient` are still to port (ROADMAP queue A6(b)).
+Counterpart of `repro.client`.  `ClientSession` runs the three-layer
+scheduler as an open-ended submit/poll/drain session over the
+`AsyncProvider` boundary; `MockProvider` replays the simulator's
+provider dynamics (with fault injection) behind it,
+`AsyncBlackBoxProvider` adapts a real model behind a blocking
+`submit`, and `FleetProvider` multiplexes a session over P endpoints
+with endpoint-aware routing.
 """
+from repro_torch.client.blackbox import AsyncBlackBoxProvider  # noqa: F401
+from repro_torch.client.fleet import FleetProvider  # noqa: F401
 from repro_torch.client.provider import (  # noqa: F401
     AsyncProvider,
     Completion,

@@ -22,6 +22,10 @@ times both builds of the attention kernels).
 all; `load(name, signatures)` returns the built library as a
 `ctypes.CDLL` with its entry points' signatures bound, and
 `check_rc` turns a launch's error code into an exception.
+
+The wrappers may be called from several threads at once (the serving
+path's worker pool): each loads its library under `LOCK`, and
+`count_launch` adds to a launch counter under it too.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -42,6 +47,8 @@ SOURCES = {
     "decode_attention": KERNELS_DIR / "decode_attention" / "decode_attention.cu",
     "ssd_scan": KERNELS_DIR / "ssd_scan" / "ssd_scan.cu",
 }
+# guards the wrappers' library handles and launch counters across threads
+LOCK = threading.Lock()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -117,3 +124,9 @@ def check_rc(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def count_launch(launches: dict, name: str) -> None:
+    """Add one to `launches[name]`, atomically across threads."""
+    with LOCK:
+        launches[name] += 1

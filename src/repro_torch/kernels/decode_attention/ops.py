@@ -48,15 +48,17 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     global _LIB
-    if _LIB is None:
-        lib = _build.load("decode_attention", {
-            "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _I, _I, ctypes.c_float, _I, _P],
-            "decode_attention_block": []})
-        if lib.decode_attention_block() != BLOCK:
-            raise RuntimeError("decode_attention.cu TK disagrees with "
-                               "ops.BLOCK")
-        _LIB = lib
+    with _build.LOCK:
+        if _LIB is None:
+            lib = _build.load("decode_attention", {
+                "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                         _I, _I, _I, _I, ctypes.c_float, _I,
+                                         _P],
+                "decode_attention_block": []})
+            if lib.decode_attention_block() != BLOCK:
+                raise RuntimeError("decode_attention.cu TK disagrees with "
+                                   "ops.BLOCK")
+            _LIB = lib
     return _LIB
 
 
@@ -100,5 +102,5 @@ def decode_attention(q, k, v, valid):
         1.0 / hd ** 0.5, DTYPES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_rc(lib, rc, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
+    _build.count_launch(LAUNCHES, "decode_attention")
     return out

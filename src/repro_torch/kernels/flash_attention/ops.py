@@ -41,10 +41,11 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     global _LIB
-    if _LIB is None:
-        _LIB = _build.load("flash_attention", {"flash_attention_fwd": [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-            _P]})
+    with _build.LOCK:
+        if _LIB is None:
+            _LIB = _build.load("flash_attention", {"flash_attention_fwd": [
+                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                _P]})
     return _LIB
 
 
@@ -99,5 +100,5 @@ def flash_attention(q, k, v, *, window: int = 0):
         H, KV, hd, window, 1.0 / hd ** 0.5, DTYPES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_rc(lib, rc, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    _build.count_launch(LAUNCHES, "flash_attention")
     return out

@@ -51,12 +51,14 @@ _LIB: ctypes.CDLL | None = None
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures bound (once)."""
     global _LIB
-    if _LIB is None:
-        lib = _build.load("sched_score", {**_SIGNATURES,
-                                          "sched_score_tile": []})
-        if lib.sched_score_tile() != TILE:
-            raise RuntimeError("sched_score.cu TILE disagrees with ops.TILE")
-        _LIB = lib
+    with _build.LOCK:
+        if _LIB is None:
+            lib = _build.load("sched_score", {**_SIGNATURES,
+                                              "sched_score_tile": []})
+            if lib.sched_score_tile() != TILE:
+                raise RuntimeError("sched_score.cu TILE disagrees with "
+                                   "ops.TILE")
+            _LIB = lib
     return _LIB
 
 
@@ -162,7 +164,7 @@ def sched_score_topb(wait, cost, urgency, mask, weights, b: int, route=None):
         _ptr(weights), n, b, _ptr(keys), _ptr(done), _ptr(idx), _ptr(score),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_rc(lib, rc, "sched_score_topb")
-    LAUNCHES["sched_score_topb"] += 1
+    _build.count_launch(LAUNCHES, "sched_score_topb")
     return idx, score
 
 
@@ -183,7 +185,7 @@ def sched_score_argmax(wait, cost, urgency, mask, weights, route=None):
         _ptr(weights), n, _ptr(keys), _ptr(done), _ptr(idx), _ptr(score),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_rc(lib, rc, "sched_score_argmax")
-    LAUNCHES["sched_score_argmax"] += 1
+    _build.count_launch(LAUNCHES, "sched_score_argmax")
     return idx, score
 
 
@@ -224,5 +226,5 @@ def sched_compact_topb(slot_req, alive, wait, cost, urgency, weights, b: int,
         _ptr(status), _ptr(out_req), _ptr(n_live), _ptr(idx), _ptr(score),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_rc(lib, rc, "sched_compact_topb")
-    LAUNCHES["sched_compact_topb"] += 1
+    _build.count_launch(LAUNCHES, "sched_compact_topb")
     return out_req, n_live, idx, score

@@ -42,19 +42,20 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     global _LIB
-    if _LIB is None:
-        lib = _build.load("ssd_scan", {
-            "ssd_intra_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _P],
-            "ssd_intra_fwd_group": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _I, _P],
-            "ssd_intra_group": [_I, _I, _I],
-            "ssd_intra_max_q": [], "ssd_intra_max_p": []})
-        lim = (lib.ssd_intra_max_q(), lib.ssd_intra_max_p())
-        if lim != (MAX_Q, MAX_P):
-            raise RuntimeError(f"ssd_scan.cu limits {lim} disagree with "
-                               f"ops ({MAX_Q}, {MAX_P})")
-        _LIB = lib
+    with _build.LOCK:
+        if _LIB is None:
+            lib = _build.load("ssd_scan", {
+                "ssd_intra_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _P],
+                "ssd_intra_fwd_group": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _I, _P],
+                "ssd_intra_group": [_I, _I, _I],
+                "ssd_intra_max_q": [], "ssd_intra_max_p": []})
+            lim = (lib.ssd_intra_max_q(), lib.ssd_intra_max_p())
+            if lim != (MAX_Q, MAX_P):
+                raise RuntimeError(f"ssd_scan.cu limits {lim} disagree with "
+                                   f"ops ({MAX_Q}, {MAX_P})")
+            _LIB = lib
     return _LIB
 
 
@@ -107,7 +108,7 @@ def ssd_intra(xc, Bc, Cc, dtc, cum):
         cum.data_ptr(), y.data_ptr(), state.data_ptr(), B, nc, Q, H, P, N,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_rc(lib, rc, "ssd_intra")
-    LAUNCHES["ssd_intra"] += 1
+    _build.count_launch(LAUNCHES, "ssd_intra")
     return y, state
 
 

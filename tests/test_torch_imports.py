@@ -5,8 +5,9 @@
   imports inside functions count too).
 * Entry points default to CUDA and raise when no card is present,
   unless the caller asks for the CPU: the simulator's, the serving
-  path's (`init_model`, `generate`, `BlackBoxProvider`) and the live
-  client's (`ClientSession`).
+  path's (`init_model`, `generate`, `BlackBoxProvider`), the live
+  client's (`ClientSession`, `ScheduledClient.run`) and the serving
+  launcher's `main`.
 * The fleet axis is exported under the reference's names
   (`repro_torch.core.routing`, the fleet types and schedules in
   `repro_torch.sim`), and its entry points run on CUDA by default too.
@@ -25,12 +26,18 @@ import pytest
 import torch
 
 from repro_torch import bridge, device
-from repro_torch.client import ClientSession, MockProvider, SessionConfig
+from repro_torch.client import (
+    ClientSession,
+    MockProvider,
+    Request,
+    SessionConfig,
+)
 from repro_torch.config import ServeConfig
 from repro_torch.configs import get_smoke
 from repro_torch.core.policy import strategy
 from repro_torch.models import Model, init_model
-from repro_torch.serving import BlackBoxProvider
+from repro_torch.launch import serve as serve_launcher
+from repro_torch.serving import BlackBoxProvider, ScheduledClient
 from repro_torch.serving import generate as serve_generate
 from repro_torch.sim import (
     SimConfig,
@@ -71,6 +78,12 @@ def test_imports_neither_jax_nor_reference(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+@pytest.mark.parametrize("rel", ["client/fleet.py", "client/blackbox.py",
+                                 "serving/blackbox.py", "launch/serve.py"])
+def test_client_and_launcher_modules_are_checked(rel):
+    assert PORT / rel in _port_files()
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -105,6 +118,14 @@ def test_other_entry_points_raise_without_cuda(no_cuda):
                          SessionConfig(window=8), clock="virtual",
                          device="cpu")
     assert sess.device == torch.device("cpu")
+    # the deprecated shim's session and the serving launcher
+    with pytest.warns(DeprecationWarning):
+        client = ScheduledClient(object(), strategy("final_adrr_olc"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        client.run([Request(rid=0, prompt=None, max_new=2, p50=2.0,
+                            bucket=0)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_launcher.main(["--requests", "1"])
 
 
 def test_fleet_names_match_the_reference():
