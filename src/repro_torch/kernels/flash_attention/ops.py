@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192)   # the kernels' (the plain versions take any)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"flash_attention": 0}
@@ -49,10 +49,18 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
+def check_head_dim(name, hd):
+    """The kernels are built for the head dims of HEAD_DIMS; checked
+    where a wrapper launches one (its plain version takes any)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+
+
 def check_attention_inputs(name, q, k, v, q_dims):
     """Shared checks of both attention wrappers: q has `q_dims` dims and
     ends in (H, hd); k/v are (B, S, KV, hd) with H % KV == 0; one dtype
-    (float32 or bfloat16), one device, contiguous, hd in HEAD_DIMS."""
+    (float32 or bfloat16), one device, contiguous; on CUDA hd in
+    HEAD_DIMS."""
     if q.dim() != q_dims or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
@@ -61,8 +69,6 @@ def check_attention_inputs(name, q, k, v, q_dims):
     if k.shape[0] != B or k.shape[3] != hd or KV < 1 or H % KV:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree (GQA needs H % KV == 0)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v must share a dtype in float32, "
                         f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -72,6 +78,8 @@ def check_attention_inputs(name, q, k, v, q_dims):
                          f"{v.device}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda":
+        check_head_dim(name, hd)
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

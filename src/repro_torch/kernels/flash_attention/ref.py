@@ -36,17 +36,28 @@ def flash_attention_ref(q, k, v, *, window: int = 0):
 LOG2E = 1.4426950408889634
 
 
+# relative error of the card's ex2.approx.ftz.f32 (at most 2^-22, with a
+# factor 2 to spare)
+EX2_REL = 2.0 ** -21
+
+
 def flash_attention_mma_ref(q, k, v, *, window: int = 0, bk: int = 64):
     """The rounding of `flash_attention.cu`'s bfloat16 body, in plain
     PyTorch: the online softmax over `bk`-key tiles in the log2 domain,
     S from the bf16 operands (exact products, summed in float64 and
-    rounded to float32), P rounded to bf16 before P V, O and the row sums
-    (of the unrounded P) in float32, masked scores -inf and a row with no
-    valid key yet subtracting 0, the result rounded to bf16.  The card's
-    ex2.approx, its fused multiply-add and its order of float32 sums are
-    not emulated: the kernel's output lies within one bf16 ulp of this
-    one's, where the float32 plain version above lies up to several ulps
-    away.  Same shapes as `flash_attention_ref`; q, k, v in bf16."""
+    rounded to float32), the exponent's argument s * scale * log2(e) - m
+    rounded once (the kernel's fused multiply-add), P rounded to bf16
+    before P V, O and the row sums (of the unrounded P) in float32,
+    masked scores -inf and a row with no valid key yet subtracting 0,
+    the result rounded to bf16.  The card's ex2.approx and its order of
+    float32 sums are not emulated: the kernel's output lies within one
+    bf16 ulp of this one's, where the float32 plain version above lies
+    up to several ulps away, except where ex2.approx's error (EX2_REL)
+    moves a weight across a bf16 rounding boundary.  Returns (out,
+    slack): slack is the allowance for that, per output element, the
+    sum over such weights of one bf16 ulp of the weight times |v|, over
+    the row sum.  Same shapes as `flash_attention_ref`; q, k, v in
+    bf16."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G, dev = H // KV, q.device
@@ -59,6 +70,7 @@ def flash_attention_mma_ref(q, k, v, *, window: int = 0, bk: int = 64):
     m = torch.full((B, KV, G, Sq, 1), -torch.inf, device=dev)
     l = torch.zeros_like(m)
     o = torch.zeros(B, KV, G, Sq, hd, device=dev)
+    amb = torch.zeros_like(o)
     qi = torch.arange(Sq, device=dev)[:, None]
     for k0 in range(0, Skv, bk):
         kj = torch.arange(k0, min(k0 + bk, Skv), device=dev)[None, :]
@@ -70,10 +82,18 @@ def flash_attention_mma_ref(q, k, v, *, window: int = 0, bk: int = 64):
         m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
         mu = torch.where(m_new == -torch.inf, torch.zeros_like(m_new), m_new)
         corr = torch.exp2(m - mu)
-        p = torch.exp2(s * scale_log2 - mu)
+        # fmaf(s, scale_log2, -mu): exact in float64, rounded once
+        x = (s.double() * scale_log2.double() - mu.double()).float()
+        p = torch.exp2(x)
         l = l * corr + p.sum(-1, keepdim=True)
         pv = p.to(torch.bfloat16).double() @ vd[..., k0:k0 + bk, :]
         o = o * corr + pv.float()
+        # weights that ex2.approx's error may round the other way
+        ulp = ((p * (1 + EX2_REL)).to(torch.bfloat16).double()
+               - (p * (1 - EX2_REL)).to(torch.bfloat16).double())
+        amb = amb * corr + (ulp @ vd[..., k0:k0 + bk, :].abs()).float()
         m = m_new
-    out = o / l.clamp_min(1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(torch.bfloat16)
+    lc = l.clamp_min(1e-30)
+    out = (o / lc).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    slack = (amb / lc).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    return out.to(torch.bfloat16), slack

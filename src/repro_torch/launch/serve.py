@@ -1,11 +1,15 @@
 """Serving launcher: the paper's deployment, the three-layer client
 scheduler in front of a real model behind an opaque `submit`.
 
-Counterpart of `repro.launch.serve`.  On the card (the default) it
-builds the architecture at its published full width in bf16 from a
-seeded generator; with `--device cpu` it builds the reduced variant
-(`get_smoke`) the CPU runs.  Requests go through the deprecated
-`ScheduledClient` shim: a wall-clock `ClientSession` over
+Counterpart of `repro.launch.serve`. On the card (the default) it builds
+the architecture (any of the ten) at its published full width in bf16
+from a seeded generator, after checking that its parameters fit in the
+card's free memory (`check_fits`: Arctic's 953.7 GB, Nemotron-4's 682.1
+GB and Phi-3.5-MoE's 83.7 GB do not fit one 80 GB card, and are refused
+with the bytes needed and free instead of running out of memory halfway
+through init; Qwen1.5's 70.4 GB fit); with `--device cpu` it builds the
+reduced variant (`get_smoke`) the CPU runs. Requests go through the
+deprecated `ScheduledClient` shim: a wall-clock `ClientSession` over
 `AsyncBlackBoxProvider` over `BlackBoxProvider`.
 
 Usage:
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.client import default_p90
-from repro_torch.config import ServeConfig
+from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.configs import ARCHS, get, get_smoke
 from repro_torch.core.policy import STRATEGIES, strategy
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -58,11 +62,33 @@ def make_requests(n: int, seed: int, rate_s: float = 2.0) -> list[Request]:
     return reqs
 
 
+def param_bytes(cfg: ModelConfig) -> int:
+    """Bytes of `cfg`'s parameters in its dtype (counted on the meta
+    device: nothing is allocated)."""
+    return sum(p.numel() * p.element_size()
+               for p in Model(cfg, device="meta").parameters())
+
+
+def check_fits(cfg: ModelConfig, available: int) -> int:
+    """Raise `ValueError` unless `cfg`'s parameters fit in `available`
+    bytes; returns the bytes they need."""
+    need = param_bytes(cfg)
+    if need > available:
+        raise ValueError(
+            f"{cfg.name}: its {cfg.dtype} parameters need {need:,} bytes "
+            f"({need / 1e9:.1f} GB) and the device has {available:,} free "
+            f"({available / 1e9:.1f} GB)")
+    return need
+
+
 def build_model(arch: str, device=DEFAULT_DEVICE) -> Model:
     """`arch` with seeded random weights: at its published width on the
-    card, its reduced variant on the CPU."""
+    card (refused by `check_fits` before anything is allocated when it
+    does not fit), its reduced variant on the CPU."""
     dev = resolve_device(device)
     cfg = get(arch) if dev.type == "cuda" else get_smoke(arch)
+    if dev.type == "cuda":
+        check_fits(cfg, torch.cuda.mem_get_info(dev)[0])
     return init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                       device=dev)
 

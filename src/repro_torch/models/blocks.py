@@ -2,16 +2,19 @@
 `nn.Module` per layer (the model holds them in an `nn.ModuleList`)
 instead of the reference's stacked `(L, ...)` leaves under `lax.scan`.
 
-The port carries three blocks:
+Every kind of the reference:
 
-* dense: pre-norm, attention, residual, pre-norm, MLP, residual;
+* dense, and the decoders behind a modality prefix (vlm, audio): pre-
+  norm, attention (RoPE or, for MusicGen, none: the model adds
+  sinusoidal positions), residual, pre-norm, MLP, residual;
+* moe: the same with the MLP replaced by `MoE` (the channel mix is the
+  MoE whenever the config has a `MoEConfig`, as in the reference);
 * ssm (Mamba2): pre-norm, the SSM mixer, residual; no MLP;
 * hybrid (Hymba): attention and the SSM mixer on the same normed input,
   fused as 0.5 * (rmsnorm_a(a) + rmsnorm_s(s)) in the model dtype,
   residual, pre-norm, MLP, residual.
 
-The mixture and modality-prefix blocks raise `NotImplementedError`
-naming the ROADMAP item that ports them.
+An `arch_type` outside these raises `ValueError`.
 """
 from __future__ import annotations
 
@@ -22,14 +25,11 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention import Attention, KVCache
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 from repro_torch.models.norms import Norm
 from repro_torch.models.ssm import SSM, SSMState
 
-NOT_PORTED = {
-    "moe": "ROADMAP queue A8c (MoE blocks)",
-    "vlm": "ROADMAP queue A8d (modality prefixes)",
-    "audio": "ROADMAP queue A8d (modality prefixes)",
-}
+KINDS = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 class LayerCache(NamedTuple):
@@ -40,20 +40,14 @@ class LayerCache(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    kind = "moe" if cfg.moe is not None else cfg.arch_type
-    if kind in NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name}: {kind} blocks are not "
-                                  f"ported yet: {NOT_PORTED[kind]}")
-    if kind in ("ssm", "hybrid"):
-        if cfg.ssm is None:
-            raise ValueError(f"{cfg.name}: {kind} blocks need an SSMConfig")
-    elif kind != "dense" or not cfg.rope:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs dense RoPE decoders, ssm and hybrid "
-            f"blocks: {NOT_PORTED['vlm']}")
-    if cfg.prefix_len:
-        raise NotImplementedError(
-            f"{cfg.name}: no modality prefix yet: {NOT_PORTED['vlm']}")
+    kind = cfg.arch_type
+    if kind not in KINDS:
+        raise ValueError(f"{cfg.name}: unknown arch_type {kind!r}; "
+                         f"choose from {KINDS}")
+    if kind in ("ssm", "hybrid") and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: {kind} blocks need an SSMConfig")
+    if kind == "moe" and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: moe blocks need a MoEConfig")
 
 
 def layer_window(cfg: ModelConfig, layer: int) -> int:
@@ -76,16 +70,25 @@ class Block(nn.Module):
         if self.kind == "hybrid":
             self.branch_norm_attn = Norm(d, "rmsnorm", dtype, device)
             self.branch_norm_ssm = Norm(d, "rmsnorm", dtype, device)
+        self.moe = self.mlp = None
         if self.kind != "ssm":
             self.norm2 = Norm(d, cfg.norm, dtype, device)
-            self.mlp = MLP(d, cfg.d_ff, cfg.activation, dtype, device,
-                           cfg.mlp_bias)
+            if cfg.moe is not None:
+                self.moe = MoE(cfg, dtype, device)
+            else:
+                self.mlp = MLP(d, cfg.d_ff, cfg.activation, dtype, device,
+                               cfg.mlp_bias)
 
     def _fuse(self, a, s):
         return 0.5 * (self.branch_norm_attn(a) + self.branch_norm_ssm(s))
 
     def _channel_mix(self, x):
-        return x if self.kind == "ssm" else x + self.mlp(self.norm2(x))
+        if self.kind == "ssm":
+            return x
+        h = self.norm2(x)
+        if self.moe is not None:
+            return x + self.moe(h)[0]
+        return x + self.mlp(h)
 
     def prefill(self, x, positions, window: int, impl: str = "kernel"):
         """Full block over a sequence.  Returns (x, (k, v) or None,

@@ -26,13 +26,24 @@ def param(shape, dtype, device, fill: float | None = None) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+# elements of the largest float32 draw `normal_` makes at once (1 GiB)
+DRAW_CHUNK = 1 << 28
+
+
 def normal_(p: torch.Tensor, generator: torch.Generator, scale: float):
     """Fill `p` with normal draws times `scale`, drawn in float32 on the
     generator's device (the reference draws `normal * scale` in the
-    parameter dtype; the distribution is the same)."""
-    draw = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                       device=generator.device)
-    p.copy_(draw.mul_(scale))
+    parameter dtype; the distribution is the same).  A tensor of more
+    than DRAW_CHUNK elements is drawn in slices along its first axis, so
+    that a full-width expert stack or embedding needs no float32 copy of
+    itself on the card."""
+    parts = [p]
+    if p.numel() > DRAW_CHUNK:
+        parts = p.split(max(1, DRAW_CHUNK // p[0].numel()))
+    for part in parts:
+        draw = torch.randn(part.shape, generator=generator,
+                           dtype=torch.float32, device=generator.device)
+        part.copy_(draw.mul_(scale))
 
 
 class Dense(nn.Module):

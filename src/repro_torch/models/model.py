@@ -12,10 +12,16 @@ Caches are a list with one `LayerCache` per layer: the layer's
 `min(window, max_seq)` for windowed dense archs, otherwise a linear
 buffer of `max_seq` positions, which hybrid archs keep so that their
 global layers see every position) and its `SSMState` (ssm and hybrid
-layers), the other None.  Archs without RoPE (Mamba2) add absolute
-sinusoidal positions to the embeddings, in prefill and at the true
-position in decode.  `forward_train` and `lm_loss` come with the
-training slice (ROADMAP queue A9).
+layers), the other None.  Archs without RoPE (Mamba2, MusicGen) add
+absolute sinusoidal positions to the embeddings, in prefill and at the
+true position in decode.
+
+The vision and audio frontends are stubs, as in the reference: the
+caller passes `prefix_embeds` (B, prefix_len, d_model), the patch or
+frame embeddings a real encoder would produce, and `prefill`
+concatenates them ahead of the token embeddings; positions run over
+prefix and text.  `forward_train` and `lm_loss` come with the training
+slice (ROADMAP queue A9).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.attention import KVCache, cache_valid, init_cache
 from repro_torch.models.blocks import Block, LayerCache, layer_window
 from repro_torch.models.common import Dense, dtype_of, normal_, param
+from repro_torch.models.moe import MoE
 from repro_torch.models.norms import Norm
 from repro_torch.models.rope import sinusoidal_embed
 from repro_torch.models.ssm import SSM, init_ssm_state
@@ -61,8 +68,10 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
     `init_model` draws them: every dense weight normal * 1/sqrt(in) (the
     attention out-projection normal * 1/sqrt(H*hd) / sqrt(2L)), the
     embedding and head normal * 1/sqrt(d_model), biases 0, norm scales
-    1; the SSM mixer's `conv_w` normal * 1/sqrt(conv_width) and its
-    `A_log`, `D`, `dt_bias` and `conv_b` as `SSM` sets them.  Draws come
+    1; the experts' `wi`/`wg` normal * 1/sqrt(d_model) and `wo`
+    normal * 1/sqrt(d_ff); the SSM mixer's `conv_w` normal *
+    1/sqrt(conv_width) and its `A_log`, `D`, `dt_bias` and `conv_b` as
+    `SSM` sets them.  Draws come
     from `generator` on its own device (a CUDA generator draws a
     full-width model on the card); the numbers differ from
     `jax.random`'s, so parity tests carry the reference's parameters
@@ -74,6 +83,11 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
     for mod in model.modules():
         if isinstance(mod, Dense):
             normal_(mod.w, g, mod.init_scale)
+        elif isinstance(mod, MoE):
+            for w in (mod.wi, mod.wg):
+                if w is not None:
+                    normal_(w, g, mod.in_scale)
+            normal_(mod.wo, g, mod.out_scale)
         elif isinstance(mod, SSM):
             normal_(mod.conv_w, g, mod.conv_w_scale)
     if model.head is not None:
@@ -81,12 +95,21 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
     return model
 
 
-def _embed(model: Model, tokens, pos0: int = 0):
-    """tokens: (B, S) integer ids at positions pos0.. -> (h (B, S, D),
-    positions (B, S)), with sinusoidal positions added when the arch has
-    no RoPE."""
+def _embed(model: Model, tokens, pos0: int = 0, prefix_embeds=None):
+    """tokens: (B, S_txt) integer ids; prefix_embeds: (B, P, D) or None,
+    placed ahead of them.  Returns (h (B, S, D), positions (B, S)) for
+    the S = P + S_txt positions pos0.., with sinusoidal positions added
+    when the arch has no RoPE."""
     h = model.embed[tokens]
-    B, S = tokens.shape
+    if prefix_embeds is not None:
+        cfg = model.cfg
+        B = tokens.shape[0]
+        if tuple(prefix_embeds.shape) != (B, cfg.prefix_len, cfg.d_model):
+            raise ValueError(
+                f"{cfg.name}: prefix_embeds must be ({B}, {cfg.prefix_len}, "
+                f"{cfg.d_model}), got {tuple(prefix_embeds.shape)}")
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    B, S = h.shape[:2]
     positions = (pos0 + torch.arange(S, dtype=torch.int32,
                                      device=tokens.device)).expand(B, S)
     if not model.cfg.rope:  # MusicGen-style absolute positions
@@ -141,11 +164,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 @torch.no_grad()
-def prefill(model: Model, tokens, max_seq: int, impl: str = "kernel"):
-    """Run the prompt (B, S): returns (last-position logits (B, 1, V)
-    float32, decode caches)."""
+def prefill(model: Model, tokens, max_seq: int, impl: str = "kernel",
+            prefix_embeds=None):
+    """Run the prompt (B, S_txt), after `prefix_embeds` (B, prefix_len,
+    d_model) when given: returns (last-position logits (B, 1, V)
+    float32, decode caches holding prefix and text)."""
     cfg = model.cfg
-    h, positions = _embed(model, tokens)
+    h, positions = _embed(model, tokens, prefix_embeds=prefix_embeds)
     S = h.shape[1]
     ring = _uses_ring(cfg)
     if _has_kv(cfg) and not ring and S > max_seq:

@@ -7,6 +7,9 @@ with an explicit generator seeded from `seed`.  Once a sequence emits
 `eos_id`, every later token of it is `eos_id`.  The loop stays on the
 device: positions are host ints known in advance, and no step reads a
 value back, so the host only waits when the caller reads the tokens.
+A vision or audio model's prefix embeddings (`prefix_embeds`, B x
+prefix_len x d_model) go ahead of the prompt in the prefill, and decode
+continues at position S_p + prefix_len, as in the reference.
 Attention and the SSD step always go through the kernels' wrappers;
 the per-layer caches (`LayerCache`: KV cache and/or SSM state) are
 updated in place by every step.  The reference's
@@ -54,9 +57,10 @@ def _step(model: Model, sc: ServeConfig, state: GenState, i: int
 
 @torch.no_grad()
 def generate(model: Model, sc: ServeConfig, prompt, n_new: int,
-             seed: int = 0, device=DEFAULT_DEVICE):
+             seed: int = 0, device=DEFAULT_DEVICE, prefix_embeds=None):
     """prompt: (B, S_p) ids (array-like or tensor) -> (B, n_new) int32
-    generated ids on `device`, where the model must lie."""
+    generated ids on `device`, where the model must lie.  prefix_embeds:
+    (B, prefix_len, d_model) (array-like or tensor), or None."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"generate: model on {model.device}, asked to run "
@@ -65,14 +69,18 @@ def generate(model: Model, sc: ServeConfig, prompt, n_new: int,
         raise ValueError(f"generate: n_new must be >= 1, got {n_new}")
     prompt = torch.as_tensor(prompt, dtype=torch.int32).to(model.device)
     B, S_p = prompt.shape
-    logits, caches = prefill(model, prompt, sc.max_seq)
+    if prefix_embeds is not None:
+        prefix_embeds = torch.as_tensor(prefix_embeds).to(model.device)
+    logits, caches = prefill(model, prompt, sc.max_seq,
+                             prefix_embeds=prefix_embeds)
+    pos0 = S_p + (model.cfg.prefix_len if prefix_embeds is not None else 0)
     gen = None
     if sc.temperature > 0:
         gen = torch.Generator(device=model.device).manual_seed(seed)
     first = _sample(logits[:, -1], sc.temperature, gen).to(torch.int32)
     tokens = torch.zeros((B, n_new), dtype=torch.int32, device=model.device)
     tokens[:, 0] = first
-    state = GenState(tokens, S_p, caches, first == sc.eos_id, gen)
+    state = GenState(tokens, pos0, caches, first == sc.eos_id, gen)
     for i in range(n_new - 1):
         state = _step(model, sc, state, i)
     return state.tokens

@@ -96,6 +96,12 @@ FLASH_GRID = [
     (1, 1024, 4, 1, 128, 0, 256, 256),   # MQA, wide head
     (1, 512, 4, 2, 64, 200, 128, 128),   # sliding window
     (1, 768, 6, 3, 32, 0, 256, 256),     # non-pow2 heads
+    # the zoo's geometries: hd 192 with G = 12 (Nemotron-4), G = 7
+    # (Arctic, InternVL2), hd 16 (InternVL2's smoke variant, which the
+    # CPU tests run; the kernels take hd 32 and up)
+    (1, 256, 12, 1, 192, 0, 128, 128),
+    (1, 256, 7, 1, 64, 0, 128, 128),
+    (2, 256, 14, 2, 16, 100, 128, 128),
 ]
 # lengths that only the port accepts (no block divisibility)
 FLASH_RAGGED = [
@@ -115,6 +121,11 @@ DECODE_GRID = [
     # splits of 4 tiles (ops.split_plan at B * KV = 32): the valid prefix
     # ends inside split 7 and inside its last tile
     (2, 2048, 16, 16, 32, 1000, 512),
+    # the zoo: hd 192 and G = 12 (Nemotron-4), G = 7 (Arctic, InternVL2),
+    # hd 16 (InternVL2's smoke variant, which the CPU tests run)
+    (1, 1024, 24, 2, 192, 700, 256),
+    (2, 512, 14, 2, 64, 300, 256),
+    (1, 512, 14, 2, 16, 401, 256),
 ]
 # the kernel's split emulation: (B, S, H, KV, hd, mask, bk); mask is a
 # valid prefix length, "ring" (every third slot stale), or "tile_last"
@@ -163,10 +174,10 @@ class TestFlashAttention:
         k = torch.zeros(1, 4, 4, 64)
         with pytest.raises(ValueError):      # Sq > Skv
             fa_ops.flash_attention(q, k, k)
-        with pytest.raises(ValueError):      # head dim
-            fa_ops.flash_attention(torch.zeros(1, 8, 4, 48),
-                                   torch.zeros(1, 8, 4, 48),
-                                   torch.zeros(1, 8, 4, 48))
+        with pytest.raises(ValueError):      # head dim, checked on CUDA
+            fa_ops.check_head_dim("flash_attention", 48)
+        x48 = torch.zeros(1, 8, 4, 48)       # the plain version takes it
+        assert fa_ops.flash_attention(x48, x48, x48).shape == x48.shape
         with pytest.raises(ValueError):      # H % KV
             fa_ops.flash_attention(q, torch.zeros(1, 8, 3, 64),
                                    torch.zeros(1, 8, 3, 64))
@@ -199,7 +210,7 @@ class TestFlashTensorCoreRounding:
         _, (tq, tk, tv) = inputs(
             5, [(B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)],
             "bfloat16")
-        emulated = flash_attention_mma_ref(tq, tk, tv, window=window)
+        emulated, _ = flash_attention_mma_ref(tq, tk, tv, window=window)
         plain = fa_ops.flash_attention(tq, tk, tv, window=window)
         assert emulated.dtype == plain.dtype == torch.bfloat16
         np.testing.assert_allclose(f32(emulated), f32(plain),

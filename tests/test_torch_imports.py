@@ -84,6 +84,24 @@ def test_client_and_launcher_modules_are_checked(rel):
     assert PORT / rel in _port_files()
 
 
+ZOO_MODULES = ["models/moe.py", "configs/arctic_480b.py",
+               "configs/phi35_moe_42b.py", "configs/nemotron_4_340b.py",
+               "configs/qwen15_32b.py", "configs/internvl2_1b.py",
+               "configs/musicgen_large.py"]
+
+
+@pytest.mark.parametrize("rel", ZOO_MODULES)
+def test_zoo_modules_are_checked(rel):
+    assert PORT / rel in _port_files()
+
+
+def test_registry_is_the_references():
+    from repro.configs import ARCHS as REF_ARCHS
+
+    from repro_torch.configs import ARCHS
+    assert ARCHS == REF_ARCHS
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -162,6 +180,16 @@ def test_serving_entry_points_raise_without_cuda(no_cuda):
     out = BlackBoxProvider(model, sc, device="cpu").submit(
         np.zeros(4, np.int32), 3)
     assert out.shape == (3,) and out.dtype == np.int32
+    # a prefixed model's generate too
+    vlm = init_model(get_smoke("internvl2-1b"), torch.Generator(),
+                     device="cpu")
+    pe = torch.zeros(1, vlm.cfg.prefix_len, vlm.cfg.d_model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_generate(vlm, sc, np.zeros((1, 4), np.int32), 2,
+                       prefix_embeds=pe)
+    out = serve_generate(vlm, sc, np.zeros((1, 4), np.int32), 2,
+                         device="cpu", prefix_embeds=pe)
+    assert out.shape == (1, 2)
 
 
 def _numpy_tree(model):
