@@ -15,7 +15,12 @@ Mamba2-780M, whose prefill runs `ssd_intra` in every layer; the hybrid
 Hymba-1.5B, which runs all three; and the rest of the model zoo at
 published width (phase 11): the MoE Phi-3.5-MoE and Arctic, the dense
 Qwen1.5-32B and Nemotron-4-340B (head dim 192), and InternVL2-1B and
-MusicGen-large behind their modality prefixes. The scheduler also runs
+MusicGen-large behind their modality prefixes, and StarCoder2-3B whole
+behind its 4,096-token sliding window (phase 11b). The trainer (phase
+12) runs under autograd through the plain versions, so it must launch no
+kernel: card against CPU on three smoke configs, a seeded smoke run
+whose loss falls and whose checkpoint round-trips, and StableLM-2-1.6B
+steps at full width. The scheduler also runs
 the paper tables' policy variants, the nonstationary provider
 (brownouts, token buckets, phased arrivals) and a fleet of four
 endpoints (routing, failover with requeue, per-endpoint buckets), card
@@ -55,9 +60,10 @@ Phases:
      version and the nearest single PyTorch call (for compaction, which
      none computes, the plain compaction and the top-b kernel after
      it);
-  4. paper cell: `run_cell` on the card and on the CPU with the same
-     inputs — equal decision traces, equal terminal statuses, metrics
-     within the tests' tolerance (`CELL_TOL`).  Both runs go on in
+  4. paper cell: `run_cell` (N = 160, 7,000 ticks) on the card and on
+     the CPU with the same inputs — equal decision traces, equal
+     terminal statuses, metrics within the tests' tolerance
+     (`CELL_TOL`).  Both runs go on in
      spawned processes of their own (the card's on a card that
      processes may share, compute mode Default), started after phase 5
      and read before 5c, so that they overlap phases 5a, 5b and 5d,
@@ -66,15 +72,17 @@ Phases:
      phases 5a, 5b and 5d the CPU run goes on in a spawned process
      while the card runs (`card_and_cpu`), joined before the phase ends;
   5. scale: the windowed run at N = 100,000, W = 4096, B = 16 on the
-     card — `sched_score_topb` launched (K+1) times a tick, every request
+     card, 600 ticks —
+     `sched_score_topb` launched (K+1) times a tick, every request
      accounted for on every tick and after the drain, `sched_compact_topb`
      held against its plain version on the run's own slot pool at
      mid-run, and a window of ticks traced with `torch.profiler` for the
      device's busy time and idle share (read from the trace's device
      events, `device_activity`);
  5a. tables: the paper tables' policy variants, each on the card and on
-     the CPU with the same inputs (N = 160, W = 256, B = 4, seed 0, 1,000
-     ticks): `with_information(final_adrr_olc, "no_info")` with no_info
+     the CPU with the same inputs (N = 160 at 8x the rate, W = 256, B =
+     4, seed 0, 500 ticks): `with_information(final_adrr_olc,
+     "no_info")` with no_info
      priors, `with_bucket_policy(final_adrr_olc, "reverse")` on
      heavy/high, `per_bucket_policy()` with the bucket4 lanes,
      `multi_tenant_policy(4)` with tenant4, and `final_adrr_olc` against
@@ -84,13 +92,14 @@ Phases:
  5b. scenarios: `storm` (phased arrivals, a brownout, a token bucket)
      and `rate_crunch` (a refill that collapses mid-run) through
      `run_scenario_cell` on the card and on the CPU (N = 160 at 4x the
-     rate, W = 256, B = 4, seed 0, the arrival span plus 800 ticks of
+     rate, W = 256, B = 4, seed 0, the arrival span plus 200 ticks of
      drain) — equal decisions, severity bits, statuses and bounces (at
      least one), equal phase metrics (NaN as NaN), per-phase
      completions and sheds printed;
  5c. scenario_scale: `storm` at the scale run's size (N = 100,000, W =
-     4096, B = 16, K = 2, 2,000 ticks, the population offered over the
-     N = 160 span) on the card: every request terminal after the drain,
+     4096, B = 16, K = 2, 800 ticks, the population offered over the
+     N = 160 span at 2.5x the rate, so that the brownout keeps its share
+     of 2,000 ticks) on the card: every request terminal after the drain,
      bounces counted, every real admit's service equal to the physics
      at the inflight count it saw and the tick's comfort scale, slower
      inside the brownout at equal inflight, the phase counts, and a
@@ -100,7 +109,7 @@ Phases:
      with every mechanism on (speeds 0.5, 1, 1, 2, the same failure, a
      0.3 brownout on endpoint 1 over 0.5-0.85, a per-endpoint bucket of
      0.4 grant/s with burst 6), N = 160 at 4x the rate, W = 256, B = 4,
-     the arrival span plus 800 ticks, on the card and on the CPU: equal
+     the arrival span plus 200 ticks, on the card and on the CPU: equal
      decisions, severity bits, statuses, endpoints, fleet state
      (inflight, requeues, bounces, bucket bits) and phase metrics, (K+1)
      `sched_score_topb` launches a tick (the route term as its fifth
@@ -108,16 +117,18 @@ Phases:
      cell; the first cell's recovery (phase 2's completion rate over
      phase 0's) printed;
  5e. fleet_scale: `fleet_failover` at the scale run's size (N =
-     100,000, W = 4096, B = 16, K = 2, P = 4, 2,000 ticks, untraced):
+     100,000, W = 4096, B = 16, K = 2, P = 4, 600 ticks with the
+     arrivals offered 2,000 / 600 times as fast, so that the fail window
+     keeps its share of 2,000 ticks, untraced):
      (K+1) launches a tick, requeues on endpoint 0 only, no request in
      flight on endpoint 0 at a tick inside its fail window, the fleet's
      inflight counts equal to a recount by endpoint on the last tick,
      completions on endpoints 1-3 inside the window, ticks/s;
  5f. session: the live client (`repro_torch.client`).  session_parity:
      `ClientSession` over `MockProvider` in virtual time, `balanced`/
-     medium at N = 48, W = 64, B = 4, 900 polls, seeds 0 and 1, and
+     medium at N = 48, W = 64, B = 4, 600 polls, seeds 0 and 1, and
      `storm` through `MockProvider.from_scenario` at N = 160, 4x the
-     rate, W = 256, 1,604 polls: the card's session equal to the same
+     rate, W = 256, 1,004 polls: the card's session equal to the same
      session on the CPU and to the port's windowed `run_sim` on the card
      in actions, the request of every live grant, severity bits, each
      request's status and 429 bounces at the horizon and every
@@ -129,10 +140,10 @@ Phases:
      (completion >= 0.99, nothing unfinished, resubmits where a fault
      fired, the duplicate storm completed with duplicates discarded, no
      double retire), `stuck_tail` in a card process of its own and the
-     other two after the engine runs; session_scale: W = 4096, B = 16,
+     other two in another; session_scale: W = 4096, B = 16,
      K = 2, 100,000
      requests arrived at t = 0 under `benchmarks/client_bench.py`'s
-     policy and fast physics, 600 untraced polls (polls/s, completions,
+     policy and fast physics, 300 untraced polls (polls/s, completions,
      the `enable_profiling` breakdown), 40 traced (device ops, busy ms
      and idle share a poll), 20 under `torch.cuda.set_sync_debug_mode`
      (device-to-host syncs a poll, printed, not gated), and N = 1,000
@@ -143,7 +154,7 @@ Phases:
  5g. fleet_session: `ClientSession` in virtual time over
      `FleetProvider.from_fleet_scenario` for `fleet_failover` and
      `fleet_skew` (P = 4, N = 160 at 4x the rate, W = 256, B = 4, the
-     arrival span plus 800 polls), on the card and on the CPU: equal
+     arrival span plus 200 polls), on the card and on the CPU: equal
      actions, the request of every live grant, severity bits, statuses,
      bounces, finish bits, `n_routed` after every poll and `n_refused`;
      (K+1) `sched_score_topb` launches a poll; `fleet_failover` routes
@@ -153,9 +164,10 @@ Phases:
      bare provider's session and to the card's windowed `run_sim`.  It
      times no rate, so it runs beside phase 4's processes;
  5h. fleet_session_scale: a session over `fleet_failover`'s four
-     endpoints (the schedules of 5g, fast physics with comfort 4) at
-     W = 4096, B = 16, K = 2, 100,000 requests arrived at t = 0, 600
-     timed polls and 20 under `torch.cuda.set_sync_debug_mode`: (K+1)
+     endpoints (the schedules of 5g at 8x the rate, fast physics with
+     comfort 4) at W = 4096, B = 16, K = 2, 100,000 requests arrived at
+     t = 0, 300 timed polls and 20 under
+     `torch.cuda.set_sync_debug_mode`: (K+1)
      launches a poll, nothing routed to endpoint 0 inside its window,
      polls/s, the `enable_profiling` split, `n_routed`, syncs a poll;
   6. attention_kernels: `flash_attention` and `decode_attention` against
@@ -181,7 +193,8 @@ Phases:
      phase 11's prompts and caches.  Every case is timed, float32 ones
      against the CUDA cores' float32 peak;
   7. serve: `stablelm-1.6b` at full width in bf16 with seeded random
-     weights answers 6 requests through `BlackBoxProvider.submit` and
+     weights answers 6 requests (prompts of 8-1,024 tokens, 8 or 16 new
+     tokens each) through `BlackBoxProvider.submit` and
      one batch of 4 through `generate` (greedy, max_seq 2048); the
      launch counts must be 24 a prompt and 24 a decode step; prefill
      and teacher-forced decode logits on the kernels are held against
@@ -242,7 +255,33 @@ Phases:
      models the routing flips held by MOE_FLIP_RATIO, none in float32.
      Arctic's and Nemotron's float32 copies do not fit beside them
      (declared in `ZOO_RUNS`): their bf16 rule and float32 check run on
-     a one-layer model of its own after the served model is freed.
+     a one-layer model of its own after the served model is freed;
+11b. serve_starcoder2: `starcoder2-3b` whole (30 layers, GQA 24/2 at
+     head dim 128, biases on every linear) in bf16: prompts of 37 and
+     5,000 tokens, the second past the 4,096-token window, so the ring
+     cache wraps in prefill and again in decode, and the batch of 4 x
+     256, 16 new tokens each; checks and figures as phase 7's, with 30
+     `flash_attention` launches a prompt and 30 `decode_attention` a
+     step, the float32 copy beside the model;
+ 12. train: the trainer (`repro_torch.training`), every kernel's launch
+     count 0 across the phase (training runs the plain versions under
+     autograd; checked).  (a) `stablelm`, `phi35-moe` (the aux loss,
+     capacity drops) and `mamba2` smoke configs in float32, drawn on the
+     CPU and copied to the card, 3 `train_step`s on each device over the
+     same pipeline batches: losses and grad norms within 1e-4 relative;
+     a `microbatches=4` step against the whole batch on the card (loss
+     within 1e-4 relative, parameters within 1e-4).  (b)
+     `launch.train.run` on `stablelm-smoke` at the reference test's lr
+     3e-3, 60 steps of 8 x 64: the last 10 losses' mean at least 0.3
+     below the first 10's; its checkpoint restored on the card bit for
+     bit, and a bf16 train state (float32 master and moments, the step)
+     saved and restored bit for bit.  (c) `stablelm-1.6b` at its
+     published width and depth, bf16 parameters, float32 master and
+     moments, remat on, batches of 4 x 1024 from the pipeline: 2 warm-up
+     and 8 timed steps (ms a step, tokens/s, peak memory, each step's
+     loss and grad norm, all finite), one step traced (device ops, busy
+     ms, idle share), host syncs in a step counted, and one
+     `microbatches=4` step's peak memory beside the whole batch's.
 """
 from __future__ import annotations
 
@@ -277,7 +316,9 @@ SELECTABLE = {"paper_cell": "phase_paper_cell", "tables": "phase_tables",
               "fleet_session_scale": "phase_fleet_session_scale",
               "deployment": "phase_deployment",
               "attention_kernels": "phase_attention_kernels",
-              "serve_zoo": "phase_serve_zoo"}
+              "serve_zoo": "phase_serve_zoo",
+              "serve_starcoder2": "phase_serve_starcoder2",
+              "train": "phase_train"}
 
 
 def emit(**kw):
@@ -372,6 +413,9 @@ def main() -> None:
     served_ssm = timed("serve_ssm", phase_serve_ssm, kernels)
     served_hybrid = timed("serve_hybrid", phase_serve_hybrid, kernels)
     served_zoo = timed("serve_zoo", phase_serve_zoo, kernels)
+    served_starcoder2 = timed("serve_starcoder2", phase_serve_starcoder2,
+                              kernels)
+    trained = timed("train", phase_train)
     emit(phase="seconds", **seconds)
 
     print(smi, flush=True)
@@ -383,8 +427,10 @@ def main() -> None:
           and scenario_scale > 0 and fleet > 0 and fleet_scale > 0
           and session > 0 and fleet_session > 0 and fleet_session_scale > 0
           and served > 0 and deployed > 0 and served_ssm > 0
-          and served_hybrid > 0 and served_zoo > 0,
+          and served_hybrid > 0 and served_zoo > 0
+          and served_starcoder2 > 0,
           "main path launched no kernel")
+    check(trained == 0, "training launched a kernel")
     emit(ok=True, device={"platform": "gpu", "kind": kind,
                           "count": torch.cuda.device_count()})
 
@@ -879,23 +925,27 @@ class Spawned:
         return msg[1]
 
 
-def card_and_cpu(torch, job, *args):
-    """`job(torch, device, *args)` on the card and, at the same time in a
-    spawned process of its own, on the CPU: each result with its seconds
-    and, for the card, the `sched_score_topb` launches (counted from 0
-    just before the run; the CPU runs the plain version).  The host is
-    what paces both runs, and the machine has cores to spare."""
+def card_and_cpu(torch, job, cases):
+    """`job(torch, device, *args)` for each `args` of `cases`, one after
+    another on the card and, at the same time in one spawned process,
+    on the CPU: for each case, each result with its seconds and, for the
+    card, the `sched_score_topb` launches (counted from 0 just before
+    the run; the CPU runs the plain version).  The host is what paces
+    both runs, and the machine has cores to spare; one process for all
+    the cases starts the CPU once."""
     from repro_torch.kernels.sched_score import ops
 
-    cpu = Spawned("cpu", [(job, args)])
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    card = job(torch, "cuda", *args)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = ops.LAUNCHES["sched_score_topb"]
-    (out, cpu_secs), = cpu.result()
-    return (card, secs, launches), (_as_torch(torch, out), cpu_secs, None)
+    cpu = Spawned("cpu", [(job, args) for args in cases])
+    cards = []
+    for args in cases:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        card = job(torch, "cuda", *args)
+        torch.cuda.synchronize()
+        cards.append((card, time.perf_counter() - t0,
+                      ops.LAUNCHES["sched_score_topb"]))
+    return [(card, (_as_torch(torch, out), cpu_secs, None))
+            for card, (out, cpu_secs) in zip(cards, cpu.result())]
 
 
 def same_run(torch, what, card, cpu):
@@ -920,7 +970,9 @@ def same_run(torch, what, card, cpu):
               f"{what}: metric {f} {a} vs {b}")
 
 
-PAPER_TICKS = 14000
+# the cell's last request finishes at tick 4,527, so 7,000 ticks give
+# the metrics of `main_policy.py`'s 14,000
+PAPER_TICKS = 7000
 
 
 def paper_cell_run(torch, d):
@@ -958,7 +1010,7 @@ def card_job(torch, d, job, *args):
 
 def start_paper_cell(torch, dev):
     """Phase 4's card and CPU runs, each in a spawned process of its own,
-    so that the card's 14,000 ticks overlap the phases the caller runs
+    so that the card's 7,000 ticks overlap the phases the caller runs
     until `phase_paper_cell` reads them (host-bound, the card idle >90%;
     this adds one busy process beside each of them)."""
     return (Spawned(dev.type, [(card_job, (paper_cell_run,))]),
@@ -995,6 +1047,17 @@ def phase_paper_cell(torch, dev, started=None):
 # ---------------------------------------------------------------------------
 
 TRACE_FROM, TRACE_TICKS = 200, 40   # the scale run's traced window
+# ticks of the scale runs 5 and 5e, few to keep the script within its
+# time limit on a slow host (5c takes its own, SCENARIO_SCALE)
+SCALE_TICKS = 600
+
+
+def scale_span(n, n_ticks):
+    """The arrival scale of a scale-sized scenario (5c, 5e): N requests
+    offered over the N = 160 span made 2,000 / n_ticks times shorter,
+    so that its brownout and fail windows keep the share of the run
+    they had at 2,000 ticks."""
+    return n / 160 * (2000 / n_ticks)
 
 
 def device_activity(torch, prof):
@@ -1084,7 +1147,7 @@ def phase_scale(torch, dev, kernels):
     from repro_torch.sim.engine import _retire_window, _window_view
 
     n, w, b, k = 100_000, 4096, 16, 2
-    cfg = SimConfig(n_ticks=2000, k_slots=b, window=w)
+    cfg = SimConfig(n_ticks=SCALE_TICKS, k_slots=b, window=w)
     wl = WorkloadConfig(n_requests=n, mix="balanced", congestion="high",
                         arrival_scale=n / 160, class_map="paper2")
     batch, jitter = generate(wl, torch.Generator().manual_seed(0),
@@ -1190,17 +1253,20 @@ def phase_scale(torch, dev, kernels):
 # 5a. the paper tables' policy variants, card against CPU
 # ---------------------------------------------------------------------------
 
-TABLE_TICKS = 1000
+# ticks of the table cells (few, for the script's time limit) and the
+# arrival rate that lands their traffic inside them
+TABLE_TICKS = 500
+TABLE_RATE = 8.0
 
 
 def table_cells():
     """name -> (policy, workload, physics or None): the information
     ladder's no_info rung, the reverse overload shape on heavy/high, the
     4-lane per-bucket and 4-tenant schemes, and a provider at 13 ms a
-    token.  N = 160 at 4x the rate (its arrivals land in 800 ticks);
-    heavy/high at 8x, and the slower provider's load renormalized to its
-    knee as `benchmarks/arch_physics.py` does, so each cell's traffic
-    lands inside the horizon."""
+    token.  N = 160 at TABLE_RATE, 8x (its arrivals land in 400 ticks);
+    heavy/high at twice that, and the slower provider's load
+    renormalized to its knee as `benchmarks/arch_physics.py` does, so
+    each cell's traffic lands inside the horizon."""
     from repro_torch.core import policy as pol
     from repro_torch.sim import WorkloadConfig
     from repro_torch.sim.provider import physics_for_arch
@@ -1209,16 +1275,17 @@ def table_cells():
     def wl(**kw):
         return WorkloadConfig(**{**dict(n_requests=160, mix="balanced",
                                         congestion="high",
-                                        arrival_scale=4.0), **kw})
+                                        arrival_scale=TABLE_RATE), **kw})
 
     final = pol.final_adrr_olc()
     mean = _MEAN_TOKENS["balanced"]
-    arch_scale = 4.0 * (90.0 + 6.5 * mean) / (90.0 + 13.0 * mean)
+    arch_scale = TABLE_RATE * (90.0 + 6.5 * mean) / (90.0 + 13.0 * mean)
     return {
         "info_no_info": (pol.with_information(final, "no_info"),
                          wl(information="no_info"), None),
         "shape_reverse": (pol.with_bucket_policy(final, "reverse"),
-                          wl(mix="heavy", arrival_scale=8.0), None),
+                          wl(mix="heavy", arrival_scale=2 * TABLE_RATE),
+                          None),
         "per_bucket": (pol.per_bucket_policy(), wl(class_map="bucket4"),
                        None),
         "tenant4": (pol.multi_tenant_policy(4), wl(class_map="tenant4"),
@@ -1243,9 +1310,10 @@ def phase_tables(torch, dev):
     from repro_torch.core.policy import n_classes
 
     total, cells = 0, {}
-    for name, (policy, _, _) in table_cells().items():
-        (card, secs_g, launches), (cpu, secs_c, _) = card_and_cpu(
-            torch, table_run, name)
+    variants = table_cells()
+    runs = card_and_cpu(torch, table_run, [(name,) for name in variants])
+    for (name, (policy, _, _)), run in zip(variants.items(), runs):
+        (card, secs_g, launches), (cpu, secs_c, _) = run
         k = n_classes(policy)
         check(launches == (k + 1) * TABLE_TICKS,
               f"tables {name}: {launches} sched_score_topb launches, want "
@@ -1273,7 +1341,7 @@ def phase_tables(torch, dev):
 # 5b. scenarios with provider dynamics, card against CPU
 # ---------------------------------------------------------------------------
 
-SCENARIO_DRAIN_TICKS = 800
+SCENARIO_DRAIN_TICKS = 200
 
 
 def scenario_cfg(sc, n, scale):
@@ -1303,11 +1371,13 @@ def phase_scenarios(torch, dev):
 
     n, scale, k = 160, 4.0, 2
     total, rows = 0, {}
-    for name in ("storm", "rate_crunch"):
+    names = ("storm", "rate_crunch")
+    runs = card_and_cpu(torch, scenario_run,
+                        [(get_scenario(name), n, scale) for name in names])
+    for name, run in zip(names, runs):
         sc = get_scenario(name)
         cfg = scenario_cfg(sc, n, scale)
-        ((card, pm_g), secs_g, launches), ((cpu, pm_c), secs_c, _) = \
-            card_and_cpu(torch, scenario_run, sc, n, scale)
+        ((card, pm_g), secs_g, launches), ((cpu, pm_c), secs_c, _) = run
         check(launches == (k + 1) * cfg.n_ticks,
               f"scenarios {name}: {launches} sched_score_topb launches, "
               f"want {(k + 1) * cfg.n_ticks}")
@@ -1339,8 +1409,8 @@ def phase_scenarios(torch, dev):
 # ---------------------------------------------------------------------------
 
 # the traced window lies inside the flash crowd and the brownout
-# (ticks ~965-1607 of the scale-sized storm)
-SCENARIO_TRACE_FROM = 1200
+# (ticks 386-642 of the scale-sized storm; the run ends at 799)
+SCENARIO_TRACE_FROM = 480
 
 
 def brownout_check(torch, phys, batch, jitter, final, actions, req_idx,
@@ -1393,8 +1463,10 @@ def brownout_check(torch, phys, batch, jitter, final, actions, req_idx,
                     k: [v[0], v[1]] for k, v in sorted(levels.items())})
 
 
-# N, W, B and ticks of the scale-sized storm: the scale run's
-SCENARIO_SCALE = (100_000, 4096, 16, 2000)
+# N, W, B and ticks of the scale-sized storm: the scale run's N, W and
+# B; more ticks than SCALE_TICKS, so that the brownout check meets
+# admits inside and outside the brownout at equal inflight
+SCENARIO_SCALE = (100_000, 4096, 16, 800)
 
 
 def phase_scenario_scale(torch, dev):
@@ -1410,7 +1482,7 @@ def phase_scenario_scale(torch, dev):
     cfg = SimConfig(n_ticks=n_ticks, k_slots=b, window=w)
     wl, sched, dyn, edges = build(get_scenario("storm"), n, cfg.n_ticks,
                                   cfg.dt_ms, limiter_classes=k,
-                                  arrival_scale=n / 160)
+                                  arrival_scale=scale_span(n, n_ticks))
     batch, jitter = generate(wl, torch.Generator().manual_seed(0),
                              device=dev, sched=sched)
     policy, phys = strategy("final_adrr_olc"), default_physics()
@@ -1446,7 +1518,8 @@ def phase_scenario_scale(torch, dev):
                               cfg.dt_ms)
     pm = compute_phase_metrics(batch, final, edges, k)
     emit(phase="scenario_scale", scenario="storm", n_requests=n, window=w,
-         k_slots=b, classes=k, n_ticks=cfg.n_ticks, arrival_scale=n / 160,
+         k_slots=b, classes=k, n_ticks=cfg.n_ticks,
+         arrival_scale=scale_span(n, n_ticks),
          seconds=secs, sched_score_topb_launches=launches,
          status_counts=counts, n_throttled=throttled,
          phase_edges_ms=edges.tolist(),
@@ -1495,10 +1568,12 @@ def recovery(pm):
 def phase_fleet(torch, dev):
     n, scale, k = 160, 4.0, 2
     total, rows = 0, {}
-    for name, sc in fleet_cells().items():
+    cells = fleet_cells()
+    runs = card_and_cpu(torch, scenario_run,
+                        [(sc, n, scale) for sc in cells.values()])
+    for (name, sc), run in zip(cells.items(), runs):
         cfg = scenario_cfg(sc, n, scale)
-        ((card, pm_g), secs_g, launches), ((cpu, pm_c), secs_c, _) = \
-            card_and_cpu(torch, scenario_run, sc, n, scale)
+        ((card, pm_g), secs_g, launches), ((cpu, pm_c), secs_c, _) = run
         check(launches == (k + 1) * cfg.n_ticks,
               f"fleet {name}: {launches} sched_score_topb launches, want "
               f"{(k + 1) * cfg.n_ticks}")
@@ -1553,7 +1628,9 @@ def phase_fleet(torch, dev):
 # ---------------------------------------------------------------------------
 
 # N, W, B and ticks of the scale-sized fleet: the scale run's
-FLEET_SCALE = (100_000, 4096, 16, 2000)
+FLEET_SCALE = (100_000, 4096, 16, SCALE_TICKS)
+# endpoint 0's fail window at `scale_span`: ticks 337-599 of 600, as
+# 1124-1999 of 2,000
 
 
 def phase_fleet_scale(torch, dev):
@@ -1566,11 +1643,12 @@ def phase_fleet_scale(torch, dev):
     (n, w, b, n_ticks), k = FLEET_SCALE, 2
     cfg = SimConfig(n_ticks=n_ticks, k_slots=b, window=w)
     sc = get_scenario("fleet_failover")
+    scale = scale_span(n, n_ticks)
     wl, sched, dyn, _ = build(sc, n, cfg.n_ticks, cfg.dt_ms,
-                              limiter_classes=k, arrival_scale=n / 160)
+                              limiter_classes=k, arrival_scale=scale)
     check(dyn is None, "fleet_scale: a fleet scenario built provider dynamics")
     phys = default_physics()
-    fleet = build_fleet(sc, phys, cfg.n_ticks, cfg.dt_ms, n, k, n / 160)
+    fleet = build_fleet(sc, phys, cfg.n_ticks, cfg.dt_ms, n, k, scale)
     p = fleet.phys.base_ms.shape[0]
     down = (fleet.dyn.avail[:, 0] < 0.5).nonzero().flatten()
     check(down.numel() > 0, "fleet_scale: the fail window misses the run")
@@ -1634,7 +1712,7 @@ def phase_fleet_scale(torch, dev):
     sent = torch.isfinite(final.req.submit_ms)
     emit(phase="fleet_scale", scenario="fleet_failover", n_requests=n,
          window=w, k_slots=b, classes=k, endpoints=p, n_ticks=cfg.n_ticks,
-         arrival_scale=n / 160, seconds=secs, ticks_per_s=cfg.n_ticks / secs,
+         arrival_scale=scale, seconds=secs, ticks_per_s=cfg.n_ticks / secs,
          sched_score_topb_launches=launches, fail_ticks=[first, last],
          probe_tick=probe_t, n_requeued=requeued.tolist(),
          completed_in_window_by_endpoint=done_in_window.tolist(),
@@ -1649,11 +1727,12 @@ def phase_fleet_scale(torch, dev):
 # 5f. the live client session, card against CPU and against the engine
 # ---------------------------------------------------------------------------
 
-# name -> (workload or scenario, seed, polls, window, arrival scale, N)
+# name -> (workload or scenario, seed, polls, window, arrival scale, N);
+# the storm's polls are its arrival span plus SCENARIO_DRAIN_TICKS
 SESSION_PARITY = {
-    "balanced_s0": ("balanced", 0, 900, 64, 1.0, 48),
-    "balanced_s1": ("balanced", 1, 900, 64, 1.0, 48),
-    "storm": ("storm", 0, 1604, 256, 4.0, 160),
+    "balanced_s0": ("balanced", 0, 600, 64, 1.0, 48),
+    "balanced_s1": ("balanced", 1, 600, 64, 1.0, 48),
+    "storm": ("storm", 0, 1004, 256, 4.0, 160),
 }
 SESSION_FAULTS = ("silent_drop", "stuck_tail", "dup_storm")
 # N, the horizon the arrivals and schedules are built over, the cap on
@@ -1662,11 +1741,11 @@ RECOVERY = (32, 1600, 9000)
 RECOVERY_RES = dict(timeout_mult=3.0, max_resubmits=3)
 # the recovery run with a card process of its own (the longest: seed 0's
 # xlong request waits out a ~70 s client deadline, ~3,800 polls); the
-# others follow the engine runs in theirs
+# other two share one
 RECOVERY_APART = "stuck_tail"
 # N, W, B, K, untraced polls, traced polls, sync-counted polls; and the
 # small run of the N-independence ratio
-SESSION_SCALE = (100_000, 4096, 16, 2, 600, 40, 20)
+SESSION_SCALE = (100_000, 4096, 16, 2, 300, 40, 20)
 SESSION_SCALE_SMALL = 1000
 
 
@@ -1907,11 +1986,11 @@ def phase_session(torch, dev):
     cases = list(SESSION_PARITY)
     beside = [n for n in SESSION_FAULTS if n != RECOVERY_APART]
     # while this process runs the card's sessions, spawned processes run
-    # the CPU's sessions, the card's engine runs followed by two recovery
-    # runs, and the longest recovery run
+    # the CPU's sessions, the card's engine runs, two recovery runs, and
+    # the longest recovery run
     cpu = Spawned("cpu", [(session_parity_run, (c,)) for c in cases])
-    engine = Spawned(dev.type, [(session_engine_run, (c,)) for c in cases]
-                     + [(recovery_run, (n,)) for n in beside])
+    engine = Spawned(dev.type, [(session_engine_run, (c,)) for c in cases])
+    faults = Spawned(dev.type, [(recovery_run, (n,)) for n in beside])
     apart = Spawned(dev.type, [(recovery_run, (RECOVERY_APART,))])
     card = {}
     for c in cases:
@@ -1919,9 +1998,8 @@ def phase_session(torch, dev):
         card[c] = session_parity_run(torch, dev.type, c)
         card[c]["seconds"] = time.perf_counter() - t0
     cpu_out = cpu.result()
-    side_out = engine.result()
-    eng_out = side_out[:len(cases)]
-    recov = {n: r for n, (r, _) in zip(beside, side_out[len(cases):])}
+    eng_out = engine.result()
+    recov = {n: r for n, (r, _) in zip(beside, faults.result())}
     ((recov[RECOVERY_APART], _),) = apart.result()
     parity = {}
     for c, (cres, csecs), (eres, esecs) in zip(cases, cpu_out, eng_out):
@@ -1958,7 +2036,7 @@ def phase_session(torch, dev):
         total += int(r["launches"])
     emit(phase="session_recovery", n_requests=RECOVERY[0],
          horizon_ticks=RECOVERY[1], cap_polls=RECOVERY[2], **RECOVERY_RES,
-         own_process=RECOVERY_APART, after_engine_runs=beside,
+         own_process=RECOVERY_APART, other_process=beside,
          runs={n: recov[n] for n in SESSION_FAULTS},
          seconds_parity_and_recovery=time.perf_counter() - t_phase)
 
@@ -2047,7 +2125,8 @@ def phase_session(torch, dev):
 # ---------------------------------------------------------------------------
 
 # the fleet sessions' cells: 5d's size (N = 160 at 4x, W = 256, B = 4,
-# the arrival span plus 800 polls); the P = 1 case is 5f's first
+# the arrival span plus SCENARIO_DRAIN_TICKS polls); the P = 1 case is
+# 5f's first
 FLEET_SESSIONS = ("fleet_failover", "fleet_skew")
 FLEET_SESSION_N, FLEET_SESSION_RATE = 160, 4.0
 FLEET_SESSION_P1 = "balanced_s0"
@@ -2205,9 +2284,11 @@ def phase_fleet_session(torch, dev):
 
 
 # the fleet session at scale: N, W, B, K, timed polls, sync-counted polls;
-# the endpoints' schedules are 5g's `fleet_failover` (the span of N = 160
-# at 4x), so the fail window lies inside the timed polls
-FLEET_SESSION_SCALE = (100_000, 4096, 16, 2, 600, 20)
+# the endpoints' schedules are `fleet_failover`'s at N = 160 and
+# FLEET_SESSION_SCALE_RATE, so the fail window (polls 141-261) lies
+# inside the timed polls
+FLEET_SESSION_SCALE = (100_000, 4096, 16, 2, 300, 20)
+FLEET_SESSION_SCALE_RATE = 8.0
 
 
 def phase_fleet_session_scale(torch, dev):
@@ -2234,7 +2315,7 @@ def phase_fleet_session_scale(torch, dev):
     polls = n_timed + n_sync
     fp = FleetProvider.from_fleet_scenario(
         get_scenario("fleet_failover"), FLEET_SESSION_N, polls, 25.0, k,
-        phys=phys, arrival_scale=FLEET_SESSION_RATE)
+        phys=phys, arrival_scale=FLEET_SESSION_SCALE_RATE)
     sess = ClientSession(fp, policy,
                          SessionConfig(window=w, max_grants=b, dt_ms=25.0),
                          clock="virtual", phys=phys, device=dev)
@@ -2625,6 +2706,8 @@ def phase_attention_kernels(torch, dev):
 
 SERVE_ARCH = "stablelm-1.6b"
 SERVE_PROMPTS = (8, 37, 128, 300, 512, 1024)   # tokens, one request each
+# new tokens of each, few for the script's time limit
+SERVE_MAX_NEW = (8, 8, 8, 16, 8, 16)
 SERVE_BATCH = (4, 256, 16)                      # B, prompt tokens, max_new
 # kernels against plain versions inside the full-width model.  In float32
 # the two differ only in the order of the kernels' sums (1e-6 on their
@@ -3071,7 +3154,8 @@ def phase_serve(torch, dev, kernels, keep=None):
 
     L = get(SERVE_ARCH).n_layers
     rng = np.random.default_rng(0)
-    requests = serve_requests(rng, get(SERVE_ARCH).vocab, SERVE_PROMPTS)
+    requests = serve_requests(rng, get(SERVE_ARCH).vocab, SERVE_PROMPTS,
+                              SERVE_MAX_NEW)
     return serve_model(
         torch, dev, kernels, phase="serve", arch=SERVE_ARCH, max_seq=2048,
         requests=requests, rng=rng, batch_shape=SERVE_BATCH,
@@ -3503,7 +3587,7 @@ def phase_serve_ssm(torch, dev, kernels):
 
     cfg = get(SSM_ARCH)
     rng = np.random.default_rng(0)
-    requests = serve_requests(rng, cfg.vocab, SERVE_PROMPTS)
+    requests = serve_requests(rng, cfg.vocab, SERVE_PROMPTS, SERVE_MAX_NEW)
     return serve_model(
         torch, dev, kernels, phase="serve_ssm", arch=SSM_ARCH, max_seq=2048,
         requests=requests, rng=rng, batch_shape=SERVE_BATCH,
@@ -3580,6 +3664,405 @@ def phase_serve_zoo(torch, dev, kernels=None):
         secs[arch] = time.perf_counter() - t0
     emit(phase="serve_zoo_seconds", **secs)
     return total
+
+
+# StarCoder2-3B whole (30 layers, GQA 24/2 at head dim 128, biases on
+# every linear), behind its 4,096-token sliding window: the model-level
+# ring cache wraps in prefill (5,000 tokens) and again in decode
+STARCODER_ARCH = "starcoder2-3b"
+STARCODER_PROMPTS = (37, 5000)   # tokens, one request each
+STARCODER_MAX_NEW = (16, 16)
+STARCODER_MAX_SEQ = 8192         # the ring holds min(4096, max_seq)
+
+
+def phase_serve_starcoder2(torch, dev, kernels=None):
+    """StarCoder2-3B at full width and depth: 30 flash_attention
+    launches a prompt, 30 decode_attention a decode step."""
+    from repro_torch.configs import get
+
+    if kernels is None:   # a rehearsal (--only): counts kept here
+        kernels = {k: {"launches": 0} for k in SERVED_KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get(STARCODER_ARCH)
+    check(STARCODER_PROMPTS[-1] > cfg.sliding_window,
+          "serve_starcoder2: the long prompt does not pass the window")
+    L = cfg.n_layers
+    rng = np.random.default_rng(0)
+    requests = serve_requests(rng, cfg.vocab, STARCODER_PROMPTS,
+                              STARCODER_MAX_NEW)
+    return serve_model(
+        torch, dev, kernels, phase="serve_starcoder2", arch=STARCODER_ARCH,
+        max_seq=STARCODER_MAX_SEQ, requests=requests, rng=rng,
+        batch_shape=ZOO_BATCH, per_prompt={"flash_attention": L},
+        per_step={"decode_attention": L}, trace_request=1, f32_copy=True)
+
+
+# ---------------------------------------------------------------------------
+# 12. training: card against CPU, a loss that falls, full width
+# ---------------------------------------------------------------------------
+
+# (a) smoke configs in float32, card against CPU from the same CPU-drawn
+# weights over the same pipeline batches
+TRAIN_PARITY_ARCHS = ("stablelm-1.6b", "phi3.5-moe-42b-a6.6b", "mamba2-780m")
+TRAIN_PARITY = (3, 4, 32)    # steps, batch, sequence
+TRAIN_PARITY_RTOL = 1e-4     # losses and grad norms, card against CPU
+# (b) `launch.train.run` at the reference test's lr, steps and batch
+# (its warmup is a tenth of the steps, 6); the loss must fall by 0.3
+TRAIN_RUN = dict(arch="stablelm-1.6b", steps=60, batch=8, seq=64, lr=3e-3)
+TRAIN_FALL = 0.3
+# (c) full width: arch, batch, sequence, warm-up steps, timed steps
+TRAIN_FULL = ("stablelm-1.6b", 4, 1024, 2, 8)
+TRAIN_MICRO = 4              # microbatches of the memory comparison
+
+
+def all_launch_counters():
+    from repro_torch.kernels.sched_score import ops as sched
+
+    return {**launch_counters(), "sched_score": sched}
+
+
+def total_launches(counters):
+    return {k: n for ops in counters.values() for k, n in ops.LAUNCHES.items()}
+
+
+def train_batches(torch, cfg, batch, seq, n, dev, seed=0):
+    """n pipeline batches as tensors on `dev`."""
+    from repro_torch.data import DataConfig, make_batches
+
+    data = make_batches(DataConfig(vocab=cfg.vocab, seq_len=seq, batch=batch,
+                                   seed=seed))
+    return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            for _, b in zip(range(n), data)]
+
+
+def train_parity(torch, dev, arch):
+    """3 train steps of `arch`'s smoke config in float32 on the CPU and
+    on the card from the same weights (drawn on the CPU) and batches:
+    losses and grad norms within TRAIN_PARITY_RTOL."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model, init_model
+    from repro_torch.training import init_train_state
+    from repro_torch.training.train_step import train_step
+
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    tc = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    steps, batch, seq = TRAIN_PARITY
+    m_cpu = init_model(cfg, torch.Generator().manual_seed(0), device=cpu)
+    m_card = Model(cfg, dev)
+    with torch.no_grad():
+        for a, b in zip(m_card.parameters(), m_cpu.parameters()):
+            a.copy_(b)
+    out = {}
+    for where, model in (("card", m_card), ("cpu", m_cpu)):
+        d = model.device
+        state = init_train_state(model, tc, device=d)
+        rows = []
+        for b in train_batches(torch, cfg, batch, seq, steps, d):
+            state, m = train_step(state, b, tc)
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        out[where] = (rows, {k: p.detach().cpu()
+                             for k, p in model.named_parameters()})
+    (card, p_card), (cpu_rows, p_cpu) = out["card"], out["cpu"]
+    rel = max(abs(a - b) / abs(b) for ra, rb in zip(card, cpu_rows)
+              for a, b in zip(ra, rb))
+    check(rel <= TRAIN_PARITY_RTOL,
+          f"train: {arch} card against CPU, losses and grad norms "
+          f"{card} vs {cpu_rows}: {rel:.3g} relative")
+    n = n_off = 0
+    for k in p_cpu:
+        diff = (p_card[k] - p_cpu[k]).abs()
+        n += diff.numel()
+        n_off += int((diff > 1e-6).sum())
+    return dict(arch=cfg.name, losses_card=[r[0] for r in card],
+                grad_norms_card=[r[1] for r in card],
+                losses_cpu=[r[0] for r in cpu_rows],
+                grad_norms_cpu=[r[1] for r in cpu_rows],
+                max_rel_diff=rel, rtol=TRAIN_PARITY_RTOL,
+                param_elements_off_by_1e6=n_off, param_elements=n,
+                param_max_abs_diff=max(float((p_card[k] - p_cpu[k]).abs()
+                                             .max()) for k in p_cpu))
+
+
+def train_microbatch(torch, dev):
+    """The reference's microbatch test on the card: stablelm-smoke in
+    float32, a 4 x 32 batch whole and as 4 microbatches, loss within
+    1e-4 relative and parameters within 1e-4."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model
+    from repro_torch.training import init_train_state
+    from repro_torch.training.train_step import train_step
+
+    cfg = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
+    toks = torch.randint(0, cfg.vocab, (4, 32), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    out = []
+    for n in (1, 4):
+        tc = TrainConfig(microbatches=n)
+        model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        state, m = train_step(init_train_state(model, tc, device=dev), batch,
+                              tc)
+        out.append((float(m["loss"]), {k: p.detach() for k, p in
+                                        state.model.named_parameters()}))
+    (l1, p1), (l4, p4) = out
+    rel = abs(l1 - l4) / abs(l1)
+    diff = max(float((p1[k] - p4[k]).abs().max()) for k in p1)
+    check(rel <= 1e-4 and diff < 1e-4,
+          f"train: microbatched step against the whole batch: loss "
+          f"{l4} vs {l1}, params {diff}")
+    return dict(loss_whole=l1, loss_micro=l4, loss_rel_diff=rel,
+                param_max_abs_diff=diff)
+
+
+def train_loss_falls(torch, dev):
+    """(b): `launch.train.run` on the card; then its checkpoint restored
+    on the card bit for bit, and a bf16 train state's (float32 master
+    and moments, int32 step) saved and restored bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.checkpoint.io import _leaves, _to_numpy
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import Model, init_model
+    from repro_torch.training import init_train_state
+    from repro_torch.training.train_step import train_step
+
+    run = TRAIN_RUN
+    cfg = get_smoke(run["arch"])
+    (ROOT / "build").mkdir(exist_ok=True)   # git-ignored, in the checkout
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        losses = train_launcher.run(
+            run["arch"], smoke=True, steps=run["steps"], batch=run["batch"],
+            seq=run["seq"], lr=run["lr"], microbatches=1, ckpt_dir=d,
+            log_every=run["steps"], device=dev)
+        run_s = time.perf_counter() - t0
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        check(np.isfinite(losses).all() and last <= first - TRAIN_FALL,
+              f"train: the loss fell from {first} to {last} over "
+              f"{run['steps']} steps, want a fall of {TRAIN_FALL}")
+        step = latest_step(d)
+        check(step == run["steps"], f"train: latest checkpoint {step}")
+        # the launcher's checkpoint (the model, bf16) into a fresh model
+        model = Model(cfg, dev)
+        restore_checkpoint(d, step, model)
+        with np.load(Path(d) / f"ckpt_{step:08d}.npz") as data:
+            same = all(np.array_equal(_to_numpy(t), data[k])
+                       for k, t in _leaves(model))
+        check(same, "train: the launcher's checkpoint did not restore on "
+              "the card bit for bit")
+        # a whole train state: bf16 parameters, float32 master and
+        # moments, the step, restored into zeros
+        tc = TrainConfig()
+        state = init_train_state(init_model(
+            cfg, torch.Generator(device=dev).manual_seed(1), device=dev), tc,
+            device=dev)
+        for b in train_batches(torch, cfg, 2, 32, 2, dev):
+            state, _ = train_step(state, b, tc)
+        save_checkpoint(d, 2, state, {"arch": cfg.name})
+        fresh = init_train_state(Model(cfg, dev), tc, device=dev)
+        with torch.no_grad():
+            for _, t in _leaves(fresh):
+                t.zero_()
+        restore_checkpoint(d, 2, fresh)
+        pairs = list(zip((t for _, t in _leaves(fresh)),
+                         (t for _, t in _leaves(state))))
+        bits = all(a.dtype == b.dtype and a.device == b.device
+                   and torch.equal(a.view(torch.int16)
+                                   if a.dtype == torch.bfloat16 else a,
+                                   b.view(torch.int16)
+                                   if b.dtype == torch.bfloat16 else b)
+                   for a, b in pairs)
+        check(bits, "train: the train state did not round-trip bit for bit")
+        dtypes = sorted({str(a.dtype) for a, _ in pairs})
+    return dict(arch=cfg.name, steps=run["steps"], batch=run["batch"],
+                seq=run["seq"], lr=run["lr"], seconds=run_s,
+                first10_mean=float(first), last10_mean=float(last),
+                fall=float(first - last), want_fall=TRAIN_FALL,
+                losses_every_10=losses[::10],
+                launcher_checkpoint_bits_equal=same,
+                train_state_bits_equal=bits, state_leaves=len(pairs),
+                state_dtypes=dtypes)
+
+
+def train_flops(cfg, batch, seq, n_params):
+    """Operations of one remat step: 8 N T for the matrices (forward,
+    the recomputed forward, backward twice the forward; the embedding's
+    gather is no product), and the plain attention's two float32
+    products over every (query, key) pair, 4 B H S^2 hd a pass, four
+    passes."""
+    T = batch * seq
+    dense = 8 * (n_params - cfg.padded_vocab * cfg.d_model) * T
+    attn = 4 * 4 * batch * cfg.n_heads * seq * seq * cfg.head_dim \
+        * cfg.n_layers
+    return dense, attn
+
+
+def device_ms_by_kind(per_name):
+    """A trace's device µs by name summed into kinds of kernel (ms):
+    float32 and other matrix products, softmax, reductions,
+    elementwise and the rest."""
+    kinds = {}
+    for name, us in per_name.items():
+        low = name.lower()
+        if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+            kind = ("matmul_f32" if "f32f32" in low or "sgemm" in low
+                    else "matmul_other")
+        elif "softmax" in low:
+            kind = "softmax"
+        elif "reduce" in low:
+            kind = "reduce"
+        elif "elementwise" in low:
+            kind = "elementwise"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+    return kinds
+
+
+def train_full_width(torch, dev):
+    """(c): `TRAIN_FULL` at published width and depth, bf16 parameters,
+    AdamW with float32 master and moments, remat on."""
+    import warnings
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get
+    from repro_torch.models import init_model
+    from repro_torch.training import adamw, init_train_state
+    from repro_torch.training.train_step import _grads, train_step
+
+    arch, B, S, n_warm, n_timed = TRAIN_FULL
+    cfg = get(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tc = TrainConfig(lr=3e-4, warmup_steps=n_warm, total_steps=n_warm
+                     + n_timed + 3, remat=True)
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    state = init_train_state(model, tc, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = torch.cuda.memory_allocated(dev)
+    batches = train_batches(torch, cfg, B, S, n_warm + n_timed + 4, dev)
+    losses, gnorms, step_ms = [], [], []
+    for i, b in enumerate(batches[:n_warm + n_timed]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, b, tc)
+        losses.append(float(m["loss"]))   # the step's one sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"train: non-finite full-width losses {losses} or grad norms "
+          f"{gnorms}")
+    timed = step_ms[n_warm:]
+    med = statistics.median(timed)
+    # one step traced
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    state, m = train_step(state, batches[n_warm + n_timed], tc)
+    torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    busy_us, n_ops, per_name = device_activity(torch, prof)
+    check(n_ops > 0, "train: the traced step shows no device work")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    # host syncs in a step that reads nothing back
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, m = train_step(state, batches[n_warm + n_timed + 1], tc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(x.message) for x in caught)
+    check(math.isfinite(float(m["loss"])), "train: non-finite loss")
+    # one step split: gradients (forward, recomputed forward, backward),
+    # then the AdamW update
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = _grads(model, batches[n_warm + n_timed + 2], tc)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw.apply(state.opt, grads, tc, dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    split_ms = dict(gradients=(t1 - t0) * 1e3,
+                    adamw=(time.perf_counter() - t1) * 1e3)
+    check(math.isfinite(float(loss)), "train: non-finite loss")
+    del grads, loss
+    model.zero_grad(set_to_none=True)
+    # one microbatched step's peak beside the whole batch's
+    tc_micro = dataclasses.replace(tc, microbatches=TRAIN_MICRO)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = train_step(state, batches[n_warm + n_timed + 3], tc_micro)
+    micro_loss = float(m["loss"])
+    micro_ms = (time.perf_counter() - t0) * 1e3
+    micro_peak = torch.cuda.max_memory_allocated(dev)
+    check(math.isfinite(micro_loss), "train: non-finite microbatched loss")
+    dense, attn = train_flops(cfg, B, S, n_params)
+    del state, model, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                params=n_params, dtype=cfg.dtype, batch=B, seq=S,
+                remat=tc.remat, warmup_steps=n_warm, timed_steps=n_timed,
+                step_ms=step_ms, step_ms_median=med,
+                tokens_per_s=B * S / med * 1e3,
+                state_gb=state_bytes / 1e9, peak_gb=peak / 1e9,
+                losses=losses, grad_norms=gnorms,
+                flop_per_step=dense + attn, attention_flop_per_step=attn,
+                tflop_per_s=(dense + attn) / med / 1e9,
+                traced_step=dict(wall_ms=traced_ms, device_ops=n_ops,
+                                 device_busy_ms=busy_us / 1e3,
+                                 device_idle_share=1.0 - busy_us / 1e3
+                                 / traced_ms,
+                                 # the profiler slows the host: against
+                                 # the untraced median step too
+                                 device_idle_share_of_median_step=1.0
+                                 - busy_us / 1e3 / med,
+                                 device_ms_by_kind=device_ms_by_kind(
+                                     per_name),
+                                 top_device_us=[[k[:60], us]
+                                                for k, us in top]),
+                step_split_ms=split_ms,
+                host_syncs_in_a_step=syncs,
+                microbatches=TRAIN_MICRO, micro_step_ms=micro_ms,
+                micro_peak_gb=micro_peak / 1e9, micro_loss=micro_loss)
+
+
+def phase_train(torch, dev):
+    """Phase 12 (module docstring).  Returns the kernel launches across
+    it, which must be 0: training runs the plain path."""
+    counters = all_launch_counters()
+    for ops in counters.values():
+        ops.reset_launches()
+    parity = [train_parity(torch, dev, arch) for arch in TRAIN_PARITY_ARCHS]
+    micro = train_microbatch(torch, dev)
+    falls = train_loss_falls(torch, dev)
+    full = train_full_width(torch, dev)
+    launches = total_launches(counters)
+    check(sum(launches.values()) == 0,
+          f"train: kernels launched while training: {launches}")
+    emit(phase="train", parity=parity, microbatch=micro, loss_falls=falls,
+         full_width=full, kernel_launches=launches,
+         kernel_launches_note="0 of every kernel: training runs the plain "
+         "path under autograd (checked)")
+    return sum(launches.values())
 
 
 TRACE_STEPS = 8   # decode steps traced with torch.profiler

@@ -1,11 +1,12 @@
 """Model and serving configuration of the port.
 
 The port's own copy of the dataclasses of `repro.config` that the model
-substrate and the serving engine read: `ModelConfig` (one architecture),
-`MoEConfig`, `SSMConfig` and `ServeConfig`.  Field names, defaults and
-the derived properties kept are the reference's, so a configuration reads the
-same in both packages.  The reference's `ShapeConfig` and `TrainConfig`,
-and the derived counts of the training slice, come with that slice.
+substrate, the serving engine and the trainer read: `ModelConfig` (one
+architecture), `MoEConfig`, `SSMConfig`, `TrainConfig` and
+`ServeConfig`.  Field names, defaults and the derived properties kept
+are the reference's, so a configuration reads the same in both
+packages.  The reference's `ShapeConfig` and `SHAPES` come with the
+sharding slice (ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -81,6 +82,21 @@ class ModelConfig:
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm.head_dim if self.ssm else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1             # grad accumulation (perf knob)
+    remat: bool = True
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,6 +23,12 @@ all; `load(name, signatures)` returns the built library as a
 `ctypes.CDLL` with its entry points' signatures bound, and
 `check_rc` turns a launch's error code into an exception.
 
+The kernels are forward-only: the reference trains through XLA, not
+its Pallas kernels, so no kernel has a backward pass.  `refuse_autograd`
+makes each wrapper raise, on any device, when grad mode is on and an
+input needs a gradient, instead of returning a result cut off from the
+graph (training runs the plain versions, `impl="plain"`).
+
 The wrappers may be called from several threads at once (the serving
 path's worker pool): each loads its library under `LOCK`, and
 `count_launch` adds to a launch counter under it too.
@@ -38,6 +44,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
@@ -124,6 +132,16 @@ def check_rc(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise `RuntimeError` when grad mode is on and one of `tensors`
+    requires a gradient: `name`'s kernel has no backward pass."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel is forward-only and an input requires a "
+            f"gradient; train through the plain version (impl='plain') or "
+            f"call it under torch.no_grad()")
 
 
 def count_launch(launches: dict, name: str) -> None:

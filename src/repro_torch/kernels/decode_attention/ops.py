@@ -1,6 +1,7 @@
 """Public wrapper of the flash-decode kernel.
 
 Counterpart of `repro.kernels.decode_attention.ops`.  `decode_attention`
+refuses inputs that need a gradient (the kernel is forward-only),
 checks device, dtype, shape and contiguity, then dispatches on where
 its tensors lie:
 
@@ -78,6 +79,7 @@ def decode_attention(q, k, v, valid):
     """q: (B, H, hd); k/v: (B, S, KV, hd); valid: (S,) bool.  One query
     token per sequence against the cache positions where `valid` holds.
     Returns (B, H, hd) in q's dtype."""
+    _build.refuse_autograd("decode_attention", q, k, v)
     dev = check_attention_inputs("decode_attention", q, k, v, 3)
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]

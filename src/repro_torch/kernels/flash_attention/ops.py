@@ -1,6 +1,7 @@
 """Public wrapper of the flash-attention (prefill) kernel.
 
 Counterpart of `repro.kernels.flash_attention.ops`.  `flash_attention`
+refuses inputs that need a gradient (the kernel is forward-only),
 checks device, dtype, shape and contiguity, then dispatches on where
 its tensors lie:
 
@@ -92,6 +93,7 @@ def flash_attention(q, k, v, *, window: int = 0):
     """q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd), Sq <= Skv.  Causal
     attention, with a sliding window when window > 0.  Returns
     (B, Sq, H, hd) in q's dtype."""
+    _build.refuse_autograd("flash_attention", q, k, v)
     dev = check_attention_inputs("flash_attention", q, k, v, 4)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]

@@ -1,6 +1,7 @@
 """Public wrappers of the scheduler scoring kernels.
 
-Counterpart of `repro.kernels.sched_score.ops`.  Each wrapper checks
+Counterpart of `repro.kernels.sched_score.ops`.  Each wrapper refuses
+inputs that need a gradient (the kernels are forward-only), checks
 device, dtype, shape and contiguity, then dispatches on where its
 tensors lie:
 
@@ -63,6 +64,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(name, tensors, dtypes, n):
+    _build.refuse_autograd(name, *tensors)
     dev = tensors[0].device
     for t, dt in zip(tensors, dtypes):
         if t.device != dev:
@@ -80,6 +82,7 @@ def _check(name, tensors, dtypes, n):
 
 
 def _check_weights(name, weights, route, dev):
+    _build.refuse_autograd(name, weights)
     nf = 4 if route is None else 5
     if weights.shape != (nf,) or weights.dtype != torch.float32:
         raise ValueError(f"{name}: weights must be ({nf},) float32, got "

@@ -1,6 +1,7 @@
 """Public wrapper of the SSD intra-chunk kernel.
 
-Counterpart of `repro.kernels.ssd_scan.ops`.  `ssd_intra` checks
+Counterpart of `repro.kernels.ssd_scan.ops`.  `ssd_intra` refuses
+inputs that need a gradient (the kernel is forward-only), checks
 device, dtype, shape and contiguity, then dispatches on where its
 tensors lie:
 
@@ -60,6 +61,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(xc, Bc, Cc, dtc, cum):
+    _build.refuse_autograd("ssd_intra", xc, Bc, Cc, dtc, cum)
     if xc.dim() != 5 or Bc.dim() != 4:
         raise ValueError(f"ssd_intra: xc must be (B,nc,Q,H,P) and Bc "
                          f"(B,nc,Q,N); got {tuple(xc.shape)}, "

@@ -83,16 +83,21 @@ class Block(nn.Module):
         return 0.5 * (self.branch_norm_attn(a) + self.branch_norm_ssm(s))
 
     def _channel_mix(self, x):
+        """x plus the MLP (or the MoE) of its norm, and the MoE's aux
+        loss (float32 (); None without a MoE, whose aux the reference
+        sets to 0.0, so leaving it out of the sum changes no bit)."""
         if self.kind == "ssm":
-            return x
+            return x, None
         h = self.norm2(x)
         if self.moe is not None:
-            return x + self.moe(h)[0]
-        return x + self.mlp(h)
+            y, aux = self.moe(h)
+            return x + y, aux
+        return x + self.mlp(h), None
 
-    def prefill(self, x, positions, window: int, impl: str = "kernel"):
-        """Full block over a sequence.  Returns (x, (k, v) or None,
-        SSMState or None)."""
+    def forward(self, x, positions, window: int, impl: str = "kernel"):
+        """Full block over a sequence: serving's prefill and, with
+        `impl="plain"` under autograd, training's pass.  Returns (x,
+        (k, v) or None, SSMState or None, the MoE aux loss or None)."""
         h = self.norm1(x)
         kv = st = None
         if self.kind == "ssm":
@@ -103,7 +108,8 @@ class Block(nn.Module):
             mix = self._fuse(a, s)
         else:
             mix, kv = self.attn.prefill(h, positions, window, impl)
-        return self._channel_mix(x + mix), kv, st
+        x, aux = self._channel_mix(x + mix)
+        return x, kv, st, aux
 
     def decode(self, x, pos: int, cache: LayerCache, window: int,
                valid=None, impl: str = "kernel"):
@@ -117,4 +123,4 @@ class Block(nn.Module):
             mix = self._fuse(a, s)
         else:
             mix, _ = self.attn.decode(h, pos, cache.kv, window, valid, impl)
-        return self._channel_mix(x + mix), cache
+        return self._channel_mix(x + mix)[0], cache

@@ -4,8 +4,9 @@ Counterpart of `repro.models.common`.  The reference keeps parameters as
 nested dicts of arrays with `(in, out)` dense weights applied as
 `x @ w (+ b)`; the port keeps the same layout inside `nn.Module`s, so
 `repro_torch.bridge.params_from_jax` can copy the reference's leaves
-one for one.  Parameters are created without gradients: this slice
-serves, and training is a later one.
+one for one.  Parameters are created without gradients, so serving
+builds no autograd graph; `repro_torch.training.init_train_state`
+switches them on for the model it trains.
 """
 from __future__ import annotations
 

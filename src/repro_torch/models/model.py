@@ -1,8 +1,12 @@
 """Decoder LM: embeddings -> the blocks -> the head.
 
-Counterpart of `repro.models.model` for serving: `Model` (an
-`nn.Module` with an `nn.ModuleList` of blocks), `init_model`, and the
-two serving entry points
+Counterpart of `repro.models.model`: `Model` (an `nn.Module` with an
+`nn.ModuleList` of blocks), `init_model`, the training entry points
+
+  * forward_train : logits over every position + the MoE aux loss
+  * lm_loss       : next-token cross entropy over the text + aux
+
+and the two serving entry points
 
   * prefill     : logits for the prompt's last position + decode caches
   * decode_step : one token against the caches (updated in place)
@@ -20,13 +24,22 @@ The vision and audio frontends are stubs, as in the reference: the
 caller passes `prefix_embeds` (B, prefix_len, d_model), the patch or
 frame embeddings a real encoder would produce, and `prefill`
 concatenates them ahead of the token embeddings; positions run over
-prefix and text.  `forward_train` and `lm_loss` come with the training
-slice (ROADMAP queue A9).
+prefix and text.
+
+Training runs the plain versions of the kernels under autograd
+(`impl="plain"`, the counterpart of the reference's `impl="xla"`): the
+hand kernels are forward-only, and their wrappers raise when an input
+needs a gradient, so `impl="kernel"` serves a forward under
+`torch.no_grad()` only.  With `remat` each block runs under
+`torch.utils.checkpoint` (the reference's `jax.checkpoint` around its
+scan body): its activations are recomputed in the backward pass instead
+of kept.  Serving's `prefill` and `decode_step` build no graph.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -128,6 +141,40 @@ def _head(model: Model, h):
     return logits
 
 
+def forward_train(model: Model, tokens, prefix_embeds=None,
+                  impl: str = "plain", remat: bool = True):
+    """tokens: (B, S_txt) ids on the model's device; prefix_embeds:
+    (B, prefix_len, d_model) or None.  Returns (logits (B, P + S_txt, V)
+    float32, the padded vocabulary's columns at -inf; the MoE aux loss
+    summed over the layers, float32 ())."""
+    cfg = model.cfg
+    h, positions = _embed(model, tokens, prefix_embeds=prefix_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i, blk in enumerate(model.blocks):
+        w = layer_window(cfg, i)
+        if remat:
+            h, _, _, a = checkpoint(blk, h, positions, w, impl,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            h, _, _, a = blk(h, positions, w, impl)
+        if a is not None:
+            aux = aux + a
+    return _head(model, h), aux
+
+
+def lm_loss(model: Model, tokens, labels, prefix_embeds=None,
+            impl: str = "plain", remat: bool = True):
+    """Mean next-token cross entropy over the text positions (labels
+    (B, S_txt) cover the text only, so the prefix's positions drop out)
+    plus the MoE aux loss: a float32 () tensor."""
+    logits, aux = forward_train(model, tokens, prefix_embeds, impl, remat)
+    P = logits.shape[1] - labels.shape[1]
+    logp = torch.log_softmax(logits[:, P:], dim=-1)
+    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+    return nll.mean() + aux
+
+
 def _ring_from_linear(k, S: int, window: int):
     """The last `window` positions of a linear (B, S, KV, hd) K/V in ring
     layout (slot = pos % window)."""
@@ -178,7 +225,7 @@ def prefill(model: Model, tokens, max_seq: int, impl: str = "kernel",
     dtype = dtype_of(cfg.dtype)
     caches = []
     for i, blk in enumerate(model.blocks):
-        h, kv, st = blk.prefill(h, positions, layer_window(cfg, i), impl)
+        h, kv, st, _ = blk(h, positions, layer_window(cfg, i), impl)
         if kv is not None:
             k, v = kv
             if ring:

@@ -1,21 +1,24 @@
 """Boundaries of the PyTorch port.
 
-* No module of `src/repro_torch/`, and not `chip_smoke.py`, imports
-  `jax` or anything of the reference package `repro` (an AST walk, so
-  imports inside functions count too).
+* No module of `src/repro_torch/`, not `chip_smoke.py` and no port-side
+  driver under `tools/` imports `jax` or anything of the reference
+  package `repro` (an AST walk, so imports inside functions count too).
 * Entry points default to CUDA and raise when no card is present,
   unless the caller asks for the CPU: the simulator's, the serving
   path's (`init_model`, `generate`, `BlackBoxProvider`), the live
-  client's (`ClientSession`, `ScheduledClient.run`) and the serving
-  launcher's `main`.
+  client's (`ClientSession`, `ScheduledClient.run`), the serving
+  launcher's `main`, and the trainer's (`init_train_state`,
+  `launch.train.run` and `main`).
 * The fleet axis is exported under the reference's names
   (`repro_torch.core.routing`, the fleet types and schedules in
   `repro_torch.sim`), and its entry points run on CUDA by default too.
 * `params_from_jax` refuses a parameter tree that does not fit the
   config.
 * Every kernel package of the port ships its CUDA source, a plain
-  `ref.py` with `*_ref` functions, and a test that imports them (the
-  port's counterpart of the reference's RPL005 kernel contract).
+  `ref.py` with `*_ref` functions, a wrapper (`ops.py`) that refuses
+  inputs needing a gradient (`_build.refuse_autograd`: the kernels are
+  forward-only), and a test that imports them (the port's counterpart
+  of the reference's RPL005 kernel contract).
 """
 import ast
 import dataclasses
@@ -67,7 +70,8 @@ def _imported_modules(path: Path):
 def _port_files():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 15
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -93,6 +97,40 @@ ZOO_MODULES = ["models/moe.py", "configs/arctic_480b.py",
 @pytest.mark.parametrize("rel", ZOO_MODULES)
 def test_zoo_modules_are_checked(rel):
     assert PORT / rel in _port_files()
+
+
+TRAINING_MODULES = ["training/adamw.py", "training/train_step.py",
+                    "data/pipeline.py", "checkpoint/io.py",
+                    "launch/train.py"]
+
+
+@pytest.mark.parametrize("rel", TRAINING_MODULES)
+def test_training_modules_are_checked(rel):
+    assert PORT / rel in _port_files()
+    assert ROOT / "tools" / "train_100m.py" in _port_files()
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.training import init_train_state
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launcher.run("stablelm-1.6b", smoke=True, steps=1, batch=2,
+                           seq=8, lr=1e-3, microbatches=1, ckpt_dir=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launcher.main(["--arch", "stablelm-1.6b", "--smoke",
+                             "--steps", "1"])
+    model = init_model(get_smoke("stablelm-1.6b"),
+                       torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(model, TrainConfig())
+    state = init_train_state(model, TrainConfig(), device="cpu")
+    assert all(p.requires_grad for p in state.model.parameters())
+    losses = train_launcher.run("stablelm-1.6b", smoke=True, steps=1,
+                                batch=2, seq=8, lr=1e-3, microbatches=1,
+                                ckpt_dir=str(tmp_path), device="cpu")
+    assert len(losses) == 1
 
 
 def test_registry_is_the_references():
@@ -248,6 +286,10 @@ def test_kernel_package_contract(pkg):
     refs = {n.name for n in ast.walk(ref)
             if isinstance(n, ast.FunctionDef) and n.name.endswith("_ref")}
     assert refs, f"{pkg}/ref.py defines no *_ref function"
+    ops = ast.parse((d / "ops.py").read_text(encoding="utf-8"))
+    guarded = any(isinstance(n, ast.Attribute) and n.attr == "refuse_autograd"
+                  for n in ast.walk(ops))
+    assert guarded, f"{pkg}/ops.py never calls _build.refuse_autograd"
     mod = f"repro_torch.kernels.{pkg}"
     tested = False
     for test in (ROOT / "tests").glob("test_torch_*.py"):
