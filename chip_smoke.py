@@ -281,7 +281,22 @@ Phases:
      and 8 timed steps (ms a step, tokens/s, peak memory, each step's
      loss and grad norm, all finite), one step traced (device ops, busy
      ms, idle share), host syncs in a step counted, and one
-     `microbatches=4` step's peak memory beside the whole batch's.
+     `microbatches=4` step's peak memory beside the whole batch's;
+ 13. dryrun: the dry run of the production meshes
+     (`repro_torch.launch.dryrun`), every kernel's launch count 0 across
+     the phase (it allocates and runs nothing on the card but the
+     shards; checked).  (a) For all 80 (arch x shape x mesh) combos,
+     one pod of 16 x 16 and two of 2 x 16 x 16 devices, the placements
+     from the logical-axis rules and one device's bytes of the state
+     (`argument_bytes_per_device`: bf16 parameters, a train step's
+     float32 master weights and moments, a decode step's caches), each
+     within the card's 80 GB; the step run once on `meta` and its FLOPs
+     counted for `stablelm-1.6b`'s four shapes.  (b) For each combo in
+     turn, rank 0's local slices allocated on the card
+     (`materialize_shard`) and freed.  (c) Each allocation equal to the
+     prediction with every tensor rounded up to the caching allocator's
+     512-byte block (expandable segments on for the phase, so no block
+     is kept whole past its request); the five largest combos printed.
 """
 from __future__ import annotations
 
@@ -318,7 +333,7 @@ SELECTABLE = {"paper_cell": "phase_paper_cell", "tables": "phase_tables",
               "attention_kernels": "phase_attention_kernels",
               "serve_zoo": "phase_serve_zoo",
               "serve_starcoder2": "phase_serve_starcoder2",
-              "train": "phase_train"}
+              "train": "phase_train", "dryrun": "phase_dryrun"}
 
 
 def emit(**kw):
@@ -416,6 +431,7 @@ def main() -> None:
     served_starcoder2 = timed("serve_starcoder2", phase_serve_starcoder2,
                               kernels)
     trained = timed("train", phase_train)
+    dry = timed("dryrun", phase_dryrun)
     emit(phase="seconds", **seconds)
 
     print(smi, flush=True)
@@ -431,6 +447,7 @@ def main() -> None:
           and served_starcoder2 > 0,
           "main path launched no kernel")
     check(trained == 0, "training launched a kernel")
+    check(dry == 0, "the dry run launched a kernel")
     emit(ok=True, device={"platform": "gpu", "kind": kind,
                           "count": torch.cuda.device_count()})
 
@@ -4062,6 +4079,85 @@ def phase_train(torch, dev):
          full_width=full, kernel_launches=launches,
          kernel_launches_note="0 of every kernel: training runs the plain "
          "path under autograd (checked)")
+    return sum(launches.values())
+
+
+# ---------------------------------------------------------------------------
+# 13. the dry run: every combo's rank-0 shard on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_FLOPS_ARCH = "stablelm-1.6b"   # the step run on meta, FLOPs counted
+DRYRUN_TOP = 5                        # largest combos printed
+
+
+def phase_dryrun(torch, dev):
+    """Phase 13 (module docstring).  Returns the kernel launches across
+    it, which must be 0."""
+    from repro_torch.config import SHAPES
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.dryrun import MESHES, record
+    from repro_torch.launch.specs import materialize_shard
+
+    counters = all_launch_counters()
+    for ops in counters.values():
+        ops.reset_launches()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # split every block at its request: memory_allocated() then grows by
+    # each tensor's bytes rounded up to 512 and no more
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    rows, flops, cache, t_spec, t_mat = [], {}, {}, 0.0, 0.0
+    try:
+        for mesh_kind in MESHES:
+            for arch in ARCHS:
+                for shape in SHAPES:
+                    t0 = time.perf_counter()
+                    rec, spec = record(arch, shape, mesh_kind,
+                                       flops=arch == DRYRUN_FLOPS_ARCH,
+                                       flops_cache=cache)
+                    t_spec += time.perf_counter() - t0
+                    check(rec["ok"], f"dryrun: {arch} {shape} {mesh_kind}: "
+                          f"{rec.get('error')}")
+                    want = rec["argument_bytes_allocated"]
+                    check(rec["fits_hbm"],
+                          f"dryrun: {arch} {shape} {mesh_kind}: "
+                          f"{rec['argument_bytes_per_device']} bytes")
+                    if "flops" in rec:
+                        flops[shape] = rec["flops"]
+                    t0 = time.perf_counter()
+                    shard = materialize_shard(spec, device=dev)
+                    torch.cuda.synchronize()
+                    got = shard.allocated
+                    del shard
+                    t_mat += time.perf_counter() - t0
+                    check(got == want,
+                          f"dryrun: {arch} {shape} {mesh_kind}: rank 0's "
+                          f"shard grew the card's allocation by {got} "
+                          f"bytes, predicted {want}")
+                    rows.append((rec["argument_bytes_per_device"], arch,
+                                 shape, mesh_kind, rec["n_state_tensors"],
+                                 got))
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    launches = total_launches(counters)
+    check(sum(launches.values()) == 0,
+          f"dryrun: kernels launched: {launches}")
+    check(len(rows) == len(MESHES) * len(ARCHS) * len(SHAPES)
+          and len(flops) == len(SHAPES),
+          f"dryrun: {len(rows)} combos, FLOPs of {sorted(flops)}")
+    top = sorted(rows, reverse=True)[:DRYRUN_TOP]
+    emit(phase="dryrun", combos=len(rows),
+         all_allocations_equal_prediction=True,
+         largest=[dict(arch=a, shape=s, mesh=m,
+                       argument_bytes_per_device=b, gb=b / 1e9,
+                       allocated_bytes=g, tensors=n)
+                  for b, a, s, m, n, g in top],
+         bytes_per_device={f"{a} {s} {m}": b
+                           for b, a, s, m, _, _ in rows},
+         stablelm_flops=flops, spec_seconds=t_spec,
+         materialize_seconds=t_mat, kernel_launches=launches)
     return sum(launches.values())
 
 

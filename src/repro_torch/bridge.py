@@ -133,6 +133,17 @@ def _param_tensor(arr) -> torch.Tensor:
                     f"carries float32 and bfloat16")
 
 
+def reference_path(name: str) -> tuple[str, int | None]:
+    """A port parameter's `named_parameters` name -> (the reference's
+    tree path, its layer on the stacked leaf's leading axis or None):
+    `blocks.3.attn.q.w` -> (`blocks/attn/q/w`, 3), `embed` ->
+    (`embed`, None)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return "/".join(["blocks", *parts[2:]]), int(parts[1])
+    return "/".join(parts), None
+
+
 def params_from_jax(params, cfg, device="cuda") -> Model:
     """The reference's parameter tree for `cfg` as a port `Model` on
     `device`.  The tree must hold exactly the leaves the port's model
@@ -142,12 +153,8 @@ def params_from_jax(params, cfg, device="cuda") -> Model:
     flat = _flatten(params)
     want = {}
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            layer, rest = int(parts[1]), "/".join(parts[2:])
-            want.setdefault(f"blocks/{rest}", []).append((layer, p))
-        else:
-            want["/".join(parts)] = [(None, p)]
+        path, layer = reference_path(name)
+        want.setdefault(path, []).append((layer, p))
     missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
     if missing or extra:
         raise ValueError(f"params_from_jax: the tree does not match "

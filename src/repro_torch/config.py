@@ -3,10 +3,11 @@
 The port's own copy of the dataclasses of `repro.config` that the model
 substrate, the serving engine and the trainer read: `ModelConfig` (one
 architecture), `MoEConfig`, `SSMConfig`, `TrainConfig` and
-`ServeConfig`.  Field names, defaults and the derived properties kept
-are the reference's, so a configuration reads the same in both
-packages.  The reference's `ShapeConfig` and `SHAPES` come with the
-sharding slice (ROADMAP A9b).
+`ServeConfig`, and the assigned input shapes (`ShapeConfig`, `SHAPES`:
+train_4k / prefill_32k / decode_32k / long_500k) that the dry run
+(`repro_torch.launch.dryrun`) builds its steps at.  Field names,
+defaults and the derived properties are the reference's, so a
+configuration reads the same in both packages.
 """
 from __future__ import annotations
 
@@ -76,12 +77,77 @@ class ModelConfig:
         return ((self.vocab + 127) // 128) * 128
 
     @property
+    def attention_free(self) -> bool:
+        return self.arch_type == "ssm"
+
+    @property
     def d_inner(self) -> int:
         return (self.ssm.expand * self.d_model) if self.ssm else 0
 
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm.head_dim if self.ssm else 0
+
+    def with_sliding_window(self, window: int) -> "ModelConfig":
+        return dataclasses.replace(
+            self,
+            sliding_window=window,
+            variant_note=f"sliding-window({window}) variant for long-context decode",
+        )
+
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's formula (it leaves
+        out norms, biases and the vocabulary's padding)."""
+        d, ff, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        if not self.attention_free and self.arch_type != "hybrid":
+            hd = self.head_dim
+            per_layer += d * (self.n_heads * hd) + 2 * d * (self.n_kv * hd)
+            per_layer += (self.n_heads * hd) * d
+        gate_mult = 3 if self.activation == "silu_gated" else 2
+        if self.moe:
+            expert = gate_mult * d * ff
+            per_layer += self.moe.n_experts * expert + d * self.moe.n_experts
+            if self.moe.dense_residual:
+                per_layer += gate_mult * d * ff
+        elif ff > 0:
+            per_layer += gate_mult * d * ff
+        if self.ssm:
+            di, ds = self.d_inner, self.ssm.d_state
+            nh = self.n_ssm_heads
+            per_layer += d * (2 * di + 2 * ds + nh) + di * d
+            per_layer += self.ssm.conv_width * (di + 2 * ds)
+        if self.arch_type == "hybrid":
+            hd = self.head_dim
+            per_layer += d * (self.n_heads * hd) + 2 * d * (self.n_kv * hd)
+            per_layer += (self.n_heads * hd) * d
+        return emb + L * per_layer
+
+    def active_param_count(self) -> int:
+        """Active (per-token) parameters: a MoE counts top_k experts."""
+        if not self.moe:
+            return self.param_count()
+        d, ff, L = self.d_model, self.d_ff, self.n_layers
+        gate_mult = 3 if self.activation == "silu_gated" else 2
+        inactive = L * (self.moe.n_experts - self.moe.top_k) * gate_mult * d * ff
+        return self.param_count() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -69,10 +69,14 @@ class Attention(nn.Module):
         self.rope, self.rope_fraction = cfg.rope, cfg.rope_fraction
         self.rope_theta = cfg.rope_theta
         d = cfg.d_model
-        self.q = Dense(d, cfg.n_heads * hd, cfg.qkv_bias, dtype, device)
-        self.k = Dense(d, cfg.n_kv * hd, cfg.qkv_bias, dtype, device)
-        self.v = Dense(d, cfg.n_kv * hd, cfg.qkv_bias, dtype, device)
-        self.o = Dense(cfg.n_heads * hd, d, cfg.out_bias, dtype, device)
+        self.q = Dense(d, cfg.n_heads * hd, cfg.qkv_bias, dtype, device,
+                       axes=("embed", "heads"))
+        self.k = Dense(d, cfg.n_kv * hd, cfg.qkv_bias, dtype, device,
+                       axes=("embed", "kv_heads"))
+        self.v = Dense(d, cfg.n_kv * hd, cfg.qkv_bias, dtype, device,
+                       axes=("embed", "kv_heads"))
+        self.o = Dense(cfg.n_heads * hd, d, cfg.out_bias, dtype, device,
+                       axes=("heads", "embed"))
         self.o.init_scale = (1.0 / (cfg.n_heads * hd) ** 0.5
                              / (2 * cfg.n_layers) ** 0.5)
 
@@ -132,3 +136,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, window: int,
     shape = (batch, S, cfg.n_kv, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+# logical axes of a layer's cache, mapped by the activation rules
+CACHE_AXES = KVCache(
+    k=("cache_batch", "cache_seq", "kv_heads", None),
+    v=("cache_batch", "cache_seq", "kv_heads", None),
+)

@@ -7,6 +7,14 @@ nested dicts of arrays with `(in, out)` dense weights applied as
 one for one.  Parameters are created without gradients, so serving
 builds no autograd graph; `repro_torch.training.init_train_state`
 switches them on for the model it trains.
+
+Every module of the model declares the logical axes of its own
+parameters in `axes` (attribute name -> a tuple of names that
+`repro_torch.sharding.rules` maps onto mesh axes), as the reference's
+`init` functions build an axes tree beside each parameter tree.  The
+port keeps one module per layer, so its tuples carry no leading
+`"layers"` axis (a rule the reference maps to no mesh axis);
+`repro_torch.models.model.param_axes` gathers them by parameter name.
 """
 from __future__ import annotations
 
@@ -50,14 +58,17 @@ def normal_(p: torch.Tensor, generator: torch.Generator, scale: float):
 class Dense(nn.Module):
     """`y = x @ w (+ b)` with an `(in, out)` weight, as `dense_apply`.
 
-    `init_scale` is the standard deviation `init_model` draws `w` with:
-    1/sqrt(in) unless the owner sets another (the attention
-    out-projection does)."""
+    `axes` names the input and output dimensions' logical axes (the
+    bias takes the output's).  `init_scale` is the standard deviation
+    `init_model` draws `w` with: 1/sqrt(in) unless the owner sets
+    another (the attention out-projection does)."""
 
-    def __init__(self, d_in: int, d_out: int, bias: bool, dtype, device):
+    def __init__(self, d_in: int, d_out: int, bias: bool, dtype, device, *,
+                 axes: tuple[str, str]):
         super().__init__()
         self.w = param((d_in, d_out), dtype, device)
         self.b = param((d_out,), dtype, device, 0.0) if bias else None
+        self.axes = {"w": tuple(axes), "b": (axes[1],)}
         self.init_scale = 1.0 / d_in ** 0.5
 
     def forward(self, x):

@@ -20,10 +20,13 @@ class MLP(nn.Module):
         if activation not in ACTIVATIONS:
             raise ValueError(activation)
         self.activation = activation
-        self.wi = Dense(d_model, d_ff, bias, dtype, device)
-        self.wg = (Dense(d_model, d_ff, bias, dtype, device)
+        self.wi = Dense(d_model, d_ff, bias, dtype, device,
+                        axes=("embed", "mlp"))
+        self.wg = (Dense(d_model, d_ff, bias, dtype, device,
+                         axes=("embed", "mlp"))
                    if activation == "silu_gated" else None)
-        self.wo = Dense(d_ff, d_model, bias, dtype, device)
+        self.wo = Dense(d_ff, d_model, bias, dtype, device,
+                        axes=("mlp", "embed"))
 
     def forward(self, x):
         h = self.wi(x)

@@ -26,6 +26,14 @@ frame embeddings a real encoder would produce, and `prefill`
 concatenates them ahead of the token embeddings; positions run over
 prefix and text.
 
+`param_axes` gives every parameter's logical axes by its
+`named_parameters` name, and `cache_axes` the caches' in
+`init_caches`'s structure: what `repro_torch.launch.specs` maps onto a
+mesh with `repro_torch.sharding.rules`.  A `Model` built on
+`device="meta"` (and `init_caches(..., device="meta")`) has every shape
+and dtype at published width and allocates nothing: the port's
+counterpart of `jax.eval_shape`.
+
 Training runs the plain versions of the kernels under autograd
 (`impl="plain"`, the counterpart of the reference's `impl="xla"`): the
 hand kernels are forward-only, and their wrappers raise when an input
@@ -43,13 +51,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models.attention import KVCache, cache_valid, init_cache
+from repro_torch.models.attention import (
+    CACHE_AXES,
+    KVCache,
+    cache_valid,
+    init_cache,
+)
 from repro_torch.models.blocks import Block, LayerCache, layer_window
 from repro_torch.models.common import Dense, dtype_of, normal_, param
 from repro_torch.models.moe import MoE
 from repro_torch.models.norms import Norm
 from repro_torch.models.rope import sinusoidal_embed
-from repro_torch.models.ssm import SSM, init_ssm_state
+from repro_torch.models.ssm import SSM, SSM_STATE_AXES, init_ssm_state
 
 
 class Model(nn.Module):
@@ -68,10 +81,23 @@ class Model(nn.Module):
         self.final_norm = Norm(cfg.d_model, cfg.norm, dtype, dev)
         self.head = (None if cfg.tie_embeddings else
                      param((cfg.d_model, cfg.padded_vocab), dtype, dev))
+        self.axes = {"embed": ("vocab", "embed"), "head": ("embed", "vocab")}
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+def param_axes(model_or_cfg: Model | ModelConfig) -> dict[str, tuple]:
+    """{`named_parameters` name: its logical axes}, in parameter order,
+    for a model or (built on `meta`) a config's model."""
+    model = (model_or_cfg if isinstance(model_or_cfg, nn.Module)
+             else Model(model_or_cfg, device="meta"))
+    out = {}
+    for name, _ in model.named_parameters():
+        owner, _, attr = name.rpartition(".")
+        out[name] = model.get_submodule(owner).axes[attr]
+    return out
 
 
 @torch.no_grad()
@@ -208,6 +234,15 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
         if _has_kv(cfg) else None,
         init_ssm_state(cfg, batch, dtype, dev) if _has_ssm(cfg) else None)
         for _ in range(cfg.n_layers)]
+
+
+def cache_axes(cfg: ModelConfig) -> list[LayerCache]:
+    """The logical axes of `init_caches(cfg, ...)`, in its structure:
+    one `LayerCache` a layer, `CACHE_AXES` where it has a KV cache and
+    `SSM_STATE_AXES` where it has an SSM state."""
+    return [LayerCache(CACHE_AXES if _has_kv(cfg) else None,
+                       SSM_STATE_AXES if _has_ssm(cfg) else None)
+            for _ in range(cfg.n_layers)]
 
 
 @torch.no_grad()

@@ -85,13 +85,17 @@ class MoE(nn.Module):
         d, ff, E = cfg.d_model, cfg.d_ff, m.n_experts
         self.cfg = cfg
         self.activation = cfg.activation
-        self.router = Dense(d, E, False, dtype, device)
+        self.router = Dense(d, E, False, dtype, device,
+                            axes=("embed", "experts"))
         self.wi = param((E, d, ff), dtype, device)
         self.wg = (param((E, d, ff), dtype, device)
                    if cfg.activation == "silu_gated" else None)
         self.wo = param((E, ff, d), dtype, device)
         self.residual = (MLP(d, ff, cfg.activation, dtype, device,
                              cfg.mlp_bias) if m.dense_residual else None)
+        self.axes = {"wi": ("experts", "embed", "mlp"),
+                     "wg": ("experts", "embed", "mlp"),
+                     "wo": ("experts", "mlp", "embed")}
         # standard deviations `init_model` draws the expert weights with
         self.in_scale, self.out_scale = 1.0 / d ** 0.5, 1.0 / ff ** 0.5
 

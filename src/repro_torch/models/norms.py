@@ -11,11 +11,16 @@ from repro_torch.models.common import param
 
 
 class Norm(nn.Module):
-    def __init__(self, d: int, kind: str, dtype, device, eps: float = 1e-5):
+    """`axis`: the logical axis of the normalised dimension (the SSM
+    mixer's gated norm runs over `ssm_inner`)."""
+
+    def __init__(self, d: int, kind: str, dtype, device, eps: float = 1e-5,
+                 axis: str = "embed"):
         super().__init__()
         if kind not in ("rmsnorm", "layernorm"):
             raise ValueError(kind)
         self.kind, self.eps = kind, eps
+        self.axes = {"scale": (axis,), "bias": (axis,)}
         self.scale = param((d,), dtype, device, 1.0)
         self.bias = (param((d,), dtype, device, 0.0) if kind == "layernorm"
                      else None)

@@ -152,7 +152,8 @@ class SSM(nn.Module):
         d, di, N, H = cfg.d_model, cfg.d_inner, s.d_state, cfg.n_ssm_heads
         self.cfg = cfg
         conv_ch = di + 2 * N
-        self.in_proj = Dense(d, 2 * di + 2 * N + H, False, dtype, device)
+        self.in_proj = Dense(d, 2 * di + 2 * N + H, False, dtype, device,
+                             axes=("embed", "ssm_inner"))
         self.conv_w = param((s.conv_width, conv_ch), dtype, device)
         self.conv_w_scale = 1.0 / s.conv_width ** 0.5
         self.conv_b = param((conv_ch,), dtype, device, 0.0)
@@ -162,8 +163,11 @@ class SSM(nn.Module):
                 1.0, 16.0, H, dtype=torch.float32, device=device)))
         self.D = param((H,), dtype, device, 1.0)
         self.dt_bias = param((H,), dtype, device, 0.0)
-        self.norm = Norm(di, "rmsnorm", dtype, device)
-        self.out_proj = Dense(di, d, False, dtype, device)
+        self.norm = Norm(di, "rmsnorm", dtype, device, axis="ssm_inner")
+        self.out_proj = Dense(di, d, False, dtype, device,
+                              axes=("ssm_inner", "embed"))
+        self.axes = {"conv_w": (None, "ssm_inner"), "conv_b": ("ssm_inner",),
+                     "A_log": (None,), "D": (None,), "dt_bias": (None,)}
 
     def _mix_in(self, x, conv_state):
         """in_proj, conv, softplus: (z, u, Bm, Cm, dt float32, A float32,
@@ -210,6 +214,13 @@ class SSM(nn.Module):
         state.ssd.copy_(ssd_state)
         state.conv.copy_(conv_state)
         return self._mix_out(y.reshape(B, 1, cfg.d_inner), z), state
+
+
+# logical axes of a layer's SSM state, mapped by the activation rules
+SSM_STATE_AXES = SSMState(
+    ssd=("cache_batch", None, "ssm_inner", None),
+    conv=("cache_batch", None, "ssm_inner"),
+)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device) -> SSMState:

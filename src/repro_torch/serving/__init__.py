@@ -2,7 +2,12 @@
 the deprecated `ScheduledClient` shim (counterpart of `repro.serving`).
 The client surface proper lives in `repro_torch.client`; its names are
 re-exported here as the reference re-exports them."""
-from repro_torch.serving.engine import GenState, generate  # noqa: F401
+from repro_torch.serving.engine import (  # noqa: F401
+    GenState,
+    generate,
+    prefill_step,
+    serve_step,
+)
 from repro_torch.serving.blackbox import (  # noqa: F401
     BlackBoxProvider,
     ScheduledClient,

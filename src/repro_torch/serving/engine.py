@@ -12,10 +12,9 @@ prefix_len x d_model) go ahead of the prompt in the prefill, and decode
 continues at position S_p + prefix_len, as in the reference.
 Attention and the SSD step always go through the kernels' wrappers;
 the per-layer caches (`LayerCache`: KV cache and/or SSM state) are
-updated in place by every step.  The reference's
-`prefill_step`/`serve_step` exist for its ahead-of-time dry-run
-launcher, which the port does not have; callers use `prefill` and
-`decode_step` from `repro_torch.models`.
+updated in place by every step.  `prefill_step` and `serve_step` are
+the step functions the dry run (`repro_torch.launch.specs`) builds for
+the prefill and decode shapes.
 """
 from __future__ import annotations
 
@@ -27,6 +26,17 @@ from repro_torch.config import ServeConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import decode_step, prefill
 from repro_torch.models.model import Model
+
+
+def prefill_step(model: Model, tokens, max_seq: int, prefix_embeds=None,
+                 impl: str = "kernel"):
+    """Step of the prefill shapes: (last-position logits, caches)."""
+    return prefill(model, tokens, max_seq, impl, prefix_embeds)
+
+
+def serve_step(model: Model, token, pos: int, caches, impl: str = "kernel"):
+    """Step of the decode shapes: ONE new token against the caches."""
+    return decode_step(model, token, pos, caches, impl)
 
 
 class GenState(NamedTuple):

@@ -133,6 +133,50 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert len(losses) == 1
 
 
+DRYRUN_MODULES = ["sharding/__init__.py", "sharding/rules.py",
+                  "launch/mesh.py", "launch/specs.py", "launch/dryrun.py"]
+
+
+@pytest.mark.parametrize("rel", DRYRUN_MODULES)
+def test_dryrun_modules_are_checked(rel):
+    assert PORT / rel in _port_files()
+    assert ROOT / "tools" / "ssd_intra_layers.py" in _port_files()
+
+
+def test_dryrun_names_are_exported():
+    import repro.launch.specs as rspecs
+    import repro.sharding as rsharding
+
+    import repro_torch.launch as launch
+    import repro_torch.sharding as sharding
+    from repro_torch.serving import prefill_step, serve_step
+
+    for name in ("DEFAULT_ACT_RULES", "DEFAULT_PARAM_RULES",
+                 "logical_to_sharding", "spec_for"):
+        assert hasattr(sharding, name) and hasattr(rsharding, name), name
+    for name in ("LONG_WINDOW", "LoweringSpec", "build_spec", "config_for"):
+        assert hasattr(launch, name) and hasattr(rspecs, name), name
+    assert launch.LONG_WINDOW == rspecs.LONG_WINDOW
+    for name in ("make_production_mesh", "make_host_mesh", "shard_nbytes",
+                 "materialize_shard", "PEAK_FLOPS_BF16", "HBM_BW",
+                 "HBM_PER_CHIP", "NVLINK_BW"):
+        assert hasattr(launch, name), name
+    assert launch.HBM_PER_CHIP == 80e9 and launch.HBM_BW == 3.35e12
+    assert callable(prefill_step) and callable(serve_step)
+
+
+def test_materialize_shard_raises_without_cuda(no_cuda):
+    from repro_torch.launch import build_spec, materialize_shard
+    from repro_torch.launch.mesh import make_production_mesh
+
+    spec = build_spec("stablelm-1.6b", "train_4k",
+                      make_production_mesh(multi_pod=True),
+                      cfg_override=get_smoke("stablelm-1.6b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        materialize_shard(spec)
+    assert materialize_shard(spec, device="cpu").allocated > 0
+
+
 def test_registry_is_the_references():
     from repro.configs import ARCHS as REF_ARCHS
 
