@@ -297,6 +297,20 @@ Phases:
      prediction with every tensor rounded up to the caching allocator's
      512-byte block (expandable segments on for the phase, so no block
      is kept whole past its request); the five largest combos printed.
+ 13b. dryrun_sharded: the dry run's sharded step
+     (`repro_torch.launch.dryrun.sharded_step`) for `stablelm-1.6b`
+     train_4k and decode_32k on the one-pod mesh, as rank 0 of 256 over
+     a process group whose collectives move no data.  First the estimate
+     on the host (local tensors on `meta`): the rank's temporary bytes
+     and its collectives.  Then the same step on the card: rank 0's real
+     local shards (uninitialised), a CUDA device mesh, the same fake
+     group; the caching allocator's peak over its allocation at the
+     step's start within DRYRUN_SHARDED_RTOL of the estimate's
+     temporaries (plus DRYRUN_SHARDED_SLACK bytes), and the collectives'
+     counts and bytes equal to the estimate's.  Values are not checked
+     (the fake group leaves collective outputs undefined; the CPU tests
+     hold them against four gloo ranks).  Every kernel's launch count 0
+     across the phase.
 """
 from __future__ import annotations
 
@@ -333,7 +347,8 @@ SELECTABLE = {"paper_cell": "phase_paper_cell", "tables": "phase_tables",
               "attention_kernels": "phase_attention_kernels",
               "serve_zoo": "phase_serve_zoo",
               "serve_starcoder2": "phase_serve_starcoder2",
-              "train": "phase_train", "dryrun": "phase_dryrun"}
+              "train": "phase_train", "dryrun": "phase_dryrun",
+              "dryrun_sharded": "phase_dryrun_sharded"}
 
 
 def emit(**kw):
@@ -432,6 +447,7 @@ def main() -> None:
                               kernels)
     trained = timed("train", phase_train)
     dry = timed("dryrun", phase_dryrun)
+    dry_sharded = timed("dryrun_sharded", phase_dryrun_sharded)
     emit(phase="seconds", **seconds)
 
     print(smi, flush=True)
@@ -448,6 +464,7 @@ def main() -> None:
           "main path launched no kernel")
     check(trained == 0, "training launched a kernel")
     check(dry == 0, "the dry run launched a kernel")
+    check(dry_sharded == 0, "the sharded dry run launched a kernel")
     emit(ok=True, device={"platform": "gpu", "kind": kind,
                           "count": torch.cuda.device_count()})
 
@@ -4158,6 +4175,79 @@ def phase_dryrun(torch, dev):
                            for b, a, s, m, _, _ in rows},
          stablelm_flops=flops, spec_seconds=t_spec,
          materialize_seconds=t_mat, kernel_launches=launches)
+    return sum(launches.values())
+
+
+# ---------------------------------------------------------------------------
+# 13b. the dry run's sharded step: estimate on the host, then the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_SHARDED = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "decode_32k"))
+DRYRUN_SHARDED_RTOL = 0.05          # card peak against the estimate ...
+DRYRUN_SHARDED_SLACK = 64 << 20     # ... plus this many bytes
+
+
+def phase_dryrun_sharded(torch, dev):
+    """Phase 13b (module docstring).  Returns the kernel launches across
+    it, which must be 0."""
+    from repro_torch.launch.dryrun import sharded_step
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import build_spec
+
+    counters = all_launch_counters()
+    for ops in counters.values():
+        ops.reset_launches()
+    # cuBLAS's workspace, allocated at a handle's first product, outside
+    # the measured step
+    a = torch.ones(64, 64, device=dev, requires_grad=True)
+    (a @ a).sum().backward()
+    (a.detach().bfloat16() @ a.detach().bfloat16()).sum().item()
+    del a
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    rows = []
+    try:
+        for arch, shape in DRYRUN_SHARDED:
+            spec = build_spec(arch, shape, make_production_mesh())
+            est = sharded_step(spec, "pod", "cpu")
+            card = sharded_step(spec, "pod", "cuda")
+            del spec
+            gc.collect()
+            torch.cuda.empty_cache()
+            want, got = est["temp_size_in_bytes"], card["device_temp_bytes"]
+            rows.append(dict(
+                arch=arch, shape=shape, mesh="pod",
+                estimate_temp_bytes=want, card_peak_bytes=got,
+                card_tracked_temp_bytes=card["temp_size_in_bytes"],
+                rel_err=(got - want) / want,
+                output_bytes=est["output_size_in_bytes"],
+                collective_counts=est["collective_counts"],
+                collectives=est["collectives"],
+                card_collective_counts=card["collective_counts"],
+                card_collectives=card["collectives"],
+                estimate_seconds=est["sharded_s"],
+                card_seconds=card["sharded_s"]))
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    emit(phase="dryrun_sharded_rows", combos=rows)
+    for r in rows:
+        name = f"dryrun_sharded: {r['arch']} {r['shape']}"
+        want, got = r["estimate_temp_bytes"], r["card_peak_bytes"]
+        check(abs(got - want) <= DRYRUN_SHARDED_RTOL * want
+              + DRYRUN_SHARDED_SLACK,
+              f"{name}: the card's peak grew by {got} bytes, estimated {want}")
+        check(r["card_collective_counts"] == r["collective_counts"]
+              and r["card_collectives"] == r["collectives"],
+              f"{name}: the card's collectives differ from the estimate's")
+    launches = total_launches(counters)
+    check(sum(launches.values()) == 0,
+          f"dryrun_sharded: kernels launched: {launches}")
+    emit(phase="dryrun_sharded", combos=rows, rtol=DRYRUN_SHARDED_RTOL,
+         slack_bytes=DRYRUN_SHARDED_SLACK, collectives_equal=True,
+         kernel_launches=launches)
     return sum(launches.values())
 
 

@@ -14,13 +14,16 @@ activation rules, where `cache_batch` and `cache_seq` live (with the
 param rules a KV cache would be replicated whole on every device).
 The token inputs are split over the batch axes when the batch divides
 by them.  `shard_nbytes` sums one rank's local slices of the state,
-`materialize_shard` allocates them on a device.
+`materialize_shard` allocates them on a device, and `sharded_args`
+gives the step's arguments as DTensors on a live mesh (the dry run's
+sharded step).
 
 long_500k policy: native for ssm/hybrid; every full-attention arch runs
 as its sliding-window(8192) VARIANT, recorded in `cfg.variant_note`.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Any, Iterator, NamedTuple
 
@@ -32,6 +35,11 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.common import dtype_of
 from repro_torch.models.model import Model, cache_axes, init_caches, param_axes
 from repro_torch.serving.engine import prefill_step, serve_step
+from repro_torch.sharding.dist import (
+    ALLOC_BLOCK,
+    distribute,
+    distribute_module,
+)
 from repro_torch.sharding.rules import (
     DEFAULT_ACT_RULES,
     Mesh,
@@ -46,8 +54,6 @@ from repro_torch.training.train_step import (
 
 LONG_WINDOW = 8192
 META = torch.device("meta")
-# the CUDA caching allocator's block: every allocation rounds up to it
-ALLOC_BLOCK = 512
 
 
 class LoweringSpec(NamedTuple):
@@ -205,6 +211,26 @@ def state_leaves(spec: LoweringSpec
                     continue
                 for field, t, sh in zip(sub._fields, sub, sub_sh):
                     yield f"caches.{i}.{part}.{field}", t, sh
+
+
+def sharded_args(spec: LoweringSpec, dmesh, device=None) -> tuple:
+    """The step's arguments as DTensors on `dmesh`, each built from
+    this rank's local slice of its placement (`repro_torch.sharding.
+    dist.distribute`): new tensors on `device` (the mesh's by default;
+    `meta` allocates nothing).  The spec's own arguments are left as
+    they are."""
+    args = copy.deepcopy(spec.args)
+    out = []
+    for a, sh in zip(args, spec.in_shardings):
+        if isinstance(a, Model):
+            a = distribute_module(a, sh, dmesh, device)
+        elif isinstance(a, TrainState):
+            a = TrainState(distribute_module(a.model, sh.model, dmesh, device),
+                           distribute(a.opt, sh.opt, dmesh, device))
+        else:
+            a = distribute(a, sh, dmesh, device)
+        out.append(a)
+    return tuple(out)
 
 
 def _nbytes(shape, dtype: torch.dtype) -> int:

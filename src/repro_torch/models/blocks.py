@@ -28,6 +28,7 @@ from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
 from repro_torch.models.norms import Norm
 from repro_torch.models.ssm import SSM, SSMState
+from repro_torch.sharding.rules import constrain
 
 KINDS = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -48,6 +49,14 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: {kind} blocks need an SSMConfig")
     if kind == "moe" and cfg.moe is None:
         raise ValueError(f"{cfg.name}: moe blocks need a MoEConfig")
+
+
+def _pin(y):
+    """A mixer's or MLP's output pinned to the residual stream's
+    placement (batch split, every column whole) before it is added: in a
+    sharded step the row-parallel output projection leaves a partial
+    sum, reduced here, as GSPMD reduces it; the identity otherwise."""
+    return constrain(y, "batch", None, None)
 
 
 def layer_window(cfg: ModelConfig, layer: int) -> int:
@@ -80,7 +89,8 @@ class Block(nn.Module):
                                cfg.mlp_bias)
 
     def _fuse(self, a, s):
-        return 0.5 * (self.branch_norm_attn(a) + self.branch_norm_ssm(s))
+        return 0.5 * (self.branch_norm_attn(_pin(a))
+                      + self.branch_norm_ssm(_pin(s)))
 
     def _channel_mix(self, x):
         """x plus the MLP (or the MoE) of its norm, and the MoE's aux
@@ -91,8 +101,8 @@ class Block(nn.Module):
         h = self.norm2(x)
         if self.moe is not None:
             y, aux = self.moe(h)
-            return x + y, aux
-        return x + self.mlp(h), None
+            return x + _pin(y), aux
+        return x + _pin(self.mlp(h)), None
 
     def forward(self, x, positions, window: int, impl: str = "kernel"):
         """Full block over a sequence: serving's prefill and, with
@@ -108,7 +118,7 @@ class Block(nn.Module):
             mix = self._fuse(a, s)
         else:
             mix, kv = self.attn.prefill(h, positions, window, impl)
-        x, aux = self._channel_mix(x + mix)
+        x, aux = self._channel_mix(x + _pin(mix))
         return x, kv, st, aux
 
     def decode(self, x, pos: int, cache: LayerCache, window: int,
@@ -123,4 +133,4 @@ class Block(nn.Module):
             mix = self._fuse(a, s)
         else:
             mix, _ = self.attn.decode(h, pos, cache.kv, window, valid, impl)
-        return self._channel_mix(x + mix)[0], cache
+        return self._channel_mix(x + _pin(mix))[0], cache

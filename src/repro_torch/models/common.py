@@ -20,6 +20,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding.dist import dense
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -72,6 +75,8 @@ class Dense(nn.Module):
         self.init_scale = 1.0 / d_in ** 0.5
 
     def forward(self, x):
+        if isinstance(x, DTensor):
+            return dense(x, self.w, self.b)
         y = x @ self.w
         if self.b is not None:
             y = y + self.b

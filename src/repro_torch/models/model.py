@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
@@ -63,6 +64,8 @@ from repro_torch.models.moe import MoE
 from repro_torch.models.norms import Norm
 from repro_torch.models.rope import sinusoidal_embed
 from repro_torch.models.ssm import SSM, SSM_STATE_AXES, init_ssm_state
+from repro_torch.sharding import dist as sd
+from repro_torch.sharding.rules import constrain
 
 
 class Model(nn.Module):
@@ -139,7 +142,11 @@ def _embed(model: Model, tokens, pos0: int = 0, prefix_embeds=None):
     placed ahead of them.  Returns (h (B, S, D), positions (B, S)) for
     the S = P + S_txt positions pos0.., with sinusoidal positions added
     when the arch has no RoPE."""
-    h = model.embed[tokens]
+    if isinstance(model.embed, DTensor):
+        h = sd.embed(tokens, model.embed)
+    else:
+        h = model.embed[tokens]
+    h = constrain(h, "batch", None, None)  # re-pin batch after the gather
     if prefix_embeds is not None:
         cfg = model.cfg
         B = tokens.shape[0]
@@ -151,6 +158,9 @@ def _embed(model: Model, tokens, pos0: int = 0, prefix_embeds=None):
     B, S = h.shape[:2]
     positions = (pos0 + torch.arange(S, dtype=torch.int32,
                                      device=tokens.device)).expand(B, S)
+    if isinstance(h, DTensor):  # each rank's rows, split as h's batch
+        positions = sd.like_batch(
+            h, positions[:h.to_local().shape[0]].contiguous(), (B, S))
     if not model.cfg.rope:  # MusicGen-style absolute positions
         h = h + sinusoidal_embed(positions, model.cfg.d_model, h.dtype)
     return h, positions
@@ -159,8 +169,10 @@ def _embed(model: Model, tokens, pos0: int = 0, prefix_embeds=None):
 def _head(model: Model, h):
     cfg = model.cfg
     h = model.final_norm(h)
+    h = constrain(h, "batch", None, None)
     w = model.embed.T if model.head is None else model.head
-    logits = (h @ w).float()
+    logits = (sd.dense(h, w) if isinstance(h, DTensor) else h @ w).float()
+    logits = constrain(logits, "batch", None, "vocab")
     if cfg.padded_vocab != cfg.vocab:  # mask the alignment padding
         pad = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab
         logits = logits.masked_fill(pad, float("-inf"))
@@ -195,6 +207,9 @@ def lm_loss(model: Model, tokens, labels, prefix_embeds=None,
     (B, S_txt) cover the text only, so the prefix's positions drop out)
     plus the MoE aux loss: a float32 () tensor."""
     logits, aux = forward_train(model, tokens, prefix_embeds, impl, remat)
+    if isinstance(logits, DTensor):
+        # the vocabulary stays split: no rank gathers the logits
+        return sd.vocab_nll(logits, labels).mean() + aux
     P = logits.shape[1] - labels.shape[1]
     logp = torch.log_softmax(logits[:, P:], dim=-1)
     nll = -logp.gather(-1, labels[..., None].long())[..., 0]

@@ -8,6 +8,15 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import param
+from repro_torch.sharding.dist import gathered
+
+
+def rms_norm(x, scale, eps: float):
+    """RMSNorm of x's last dim in float32, cast back to x's dtype."""
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    y = xf / torch.sqrt(ms + eps)
+    return (y * scale.float()).to(x.dtype)
 
 
 class Norm(nn.Module):
@@ -26,14 +35,12 @@ class Norm(nn.Module):
                      else None)
 
     def forward(self, x):
-        xf = x.float()
         if self.kind == "rmsnorm":
-            ms = (xf * xf).mean(-1, keepdim=True)
-            y = xf / torch.sqrt(ms + self.eps)
-            return (y * self.scale.float()).to(x.dtype)
+            return rms_norm(x, gathered(self.scale), self.eps)
+        xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         c = xf - mu
         var = (c * c).mean(-1, keepdim=True)
         y = c / torch.sqrt(var + self.eps)
-        y = y * self.scale.float() + self.bias.float()
+        y = y * gathered(self.scale).float() + gathered(self.bias).float()
         return y.to(x.dtype)

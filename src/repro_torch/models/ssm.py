@@ -27,12 +27,15 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models.common import Dense, param
-from repro_torch.models.norms import Norm
+from repro_torch.models.norms import Norm, rms_norm
+from repro_torch.sharding import dist as sd
 
 IMPLS = ("kernel", "plain")
 
@@ -169,51 +172,129 @@ class SSM(nn.Module):
         self.axes = {"conv_w": (None, "ssm_inner"), "conv_b": ("ssm_inner",),
                      "A_log": (None,), "D": (None,), "dt_bias": (None,)}
 
-    def _mix_in(self, x, conv_state):
-        """in_proj, conv, softplus: (z, u, Bm, Cm, dt float32, A float32,
-        new conv state)."""
+    def _params(self) -> tuple:
+        """The mixer's parameters between the two projections, in the
+        order `_mix_in` and `_norm` take them."""
+        return (self.conv_w, self.conv_b, self.A_log, self.dt_bias,
+                self.D, self.norm.scale)
+
+    def _mix_in(self, zx, conv_state, conv_w, conv_b, A_log, dt_bias):
+        """The input projection's output through the conv and the
+        softplus: (z, u, Bm, Cm, dt float32, A float32, new conv
+        state)."""
         cfg = self.cfg
         di, N = cfg.d_inner, cfg.ssm.d_state
-        z, u, Bm, Cm, dt = _split_proj(cfg, self.in_proj(x))
+        z, u, Bm, Cm, dt = _split_proj(cfg, zx)
         conv_out, conv_state = _causal_conv(
-            self.conv_w, self.conv_b, torch.cat([u, Bm, Cm], dim=-1),
-            conv_state)
+            conv_w, conv_b, torch.cat([u, Bm, Cm], dim=-1), conv_state)
         u, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
-        dt = softplus(dt.float() + self.dt_bias.float())
-        A = torch.exp(self.A_log.float())
+        dt = softplus(dt.float() + dt_bias.float())
+        A = torch.exp(A_log.float())
         return z, u, Bm, Cm, dt, A, conv_state
 
-    def _mix_out(self, y, z):
-        return self.out_proj(self.norm(y * F.silu(z)))
+    def _norm(self, y, z, scale):
+        return rms_norm(y * F.silu(z), scale, self.norm.eps)
+
+    def _prefill_mix(self, zx, impl, conv_w, conv_b, A_log, dt_bias, D,
+                     scale):
+        """Prefill from the input projection's output to the gated
+        norm's: (normed y, SSMState)."""
+        cfg = self.cfg
+        H, P = cfg.n_ssm_heads, cfg.ssm.head_dim
+        B, S, _ = zx.shape
+        z, u, Bm, Cm, dt, A, conv_state = self._mix_in(
+            zx, None, conv_w, conv_b, A_log, dt_bias)
+        u = u.reshape(B, S, H, P)
+        y, ssd_state = ssd_chunked(u, Bm, Cm, dt, A, cfg.ssm.chunk,
+                                   impl=impl)
+        y = y + D.to(zx.dtype)[None, None, :, None] * u
+        h = self._norm(y.reshape(B, S, cfg.d_inner), z, scale)
+        # the conv state is a view of the whole padded input: copy it out
+        return h, SSMState(ssd_state, conv_state.clone())
+
+    def _decode_mix(self, zx, state: SSMState, conv_w, conv_b, A_log,
+                    dt_bias, D, scale):
+        """One step from the input projection's output to the gated
+        norm's: (normed y, the new SSD state, the new conv state)."""
+        cfg = self.cfg
+        H, P = cfg.n_ssm_heads, cfg.ssm.head_dim
+        B = zx.shape[0]
+        z, u, Bm, Cm, dt, A, conv_state = self._mix_in(
+            zx, state.conv, conv_w, conv_b, A_log, dt_bias)
+        y, ssd_state = ssd_step(u[:, 0].reshape(B, H, P), Bm[:, 0],
+                                Cm[:, 0], dt[:, 0], A, D.float(), state.ssd)
+        return (self._norm(y.reshape(B, 1, cfg.d_inner), z, scale),
+                ssd_state, conv_state)
 
     def prefill(self, x, impl: str = "kernel"):
         """x: (B, S, d_model), from zero state.  Returns (out,
         SSMState)."""
-        cfg = self.cfg
-        H, P = cfg.n_ssm_heads, cfg.ssm.head_dim
-        B, S, _ = x.shape
-        z, u, Bm, Cm, dt, A, conv_state = self._mix_in(x, None)
-        u = u.reshape(B, S, H, P)
-        y, ssd_state = ssd_chunked(u, Bm, Cm, dt, A, cfg.ssm.chunk,
-                                   impl=impl)
-        y = y + self.D.to(x.dtype)[None, None, :, None] * u
-        out = self._mix_out(y.reshape(B, S, cfg.d_inner), z)
-        # the conv state is a view of the whole padded input: copy it out
-        return out, SSMState(ssd_state, conv_state.clone())
+        if isinstance(x, DTensor):
+            return self._prefill_sharded(x, impl)
+        h, st = self._prefill_mix(self.in_proj(x), impl, *self._params())
+        return self.out_proj(h), st
 
     def decode(self, x, state: SSMState):
         """x: (B, 1, d_model).  One step; `state` is updated in place and
         returned."""
-        cfg = self.cfg
-        H, P = cfg.n_ssm_heads, cfg.ssm.head_dim
-        B = x.shape[0]
-        z, u, Bm, Cm, dt, A, conv_state = self._mix_in(x, state.conv)
-        y, ssd_state = ssd_step(u[:, 0].reshape(B, H, P), Bm[:, 0],
-                                Cm[:, 0], dt[:, 0], A, self.D.float(),
-                                state.ssd)
+        if isinstance(x, DTensor):
+            return self._decode_sharded(x, state)
+        h, ssd_state, conv_state = self._decode_mix(
+            self.in_proj(x), state, *self._params())
         state.ssd.copy_(ssd_state)
         state.conv.copy_(conv_state)
-        return self._mix_out(y.reshape(B, 1, cfg.d_inner), z), state
+        return self.out_proj(h), state
+
+    # --- a sharded step: x a DTensor ------------------------------------
+    # Each rank runs the whole mixer on its batch rows: the input
+    # projection's columns and the mixer's parameters all-gathered over
+    # the tensor-parallel axis (its split of the fused projection does
+    # not fall on the z / x / B / C / dt boundaries), the output
+    # projection row-parallel again.
+
+    def _prefill_sharded(self, x, impl: str):
+        dm = x.device_mesh
+        bpl = sd.batch_placements(x)
+        b_axes = sd.batch_axes(bpl, dm)
+        params = [sd.whole(p) for p in self._params()]
+        p_grad = tuple(Partial() if n in b_axes else Replicate()
+                       for n in dm.mesh_dim_names)
+
+        def mix(zx, *params):
+            h, st = self._prefill_mix(zx, impl, *params)
+            return h, st.ssd, st.conv
+
+        h, ssd, conv = local_map(
+            mix, out_placements=(bpl, bpl, bpl),
+            in_placements=(bpl,) + (tuple(params[0].placements),) * 6,
+            in_grad_placements=(bpl,) + (p_grad,) * 6, device_mesh=dm,
+            redistribute_inputs=True)(self.in_proj(x), *params)
+        return self.out_proj(h), SSMState(ssd, conv)
+
+    def _decode_sharded(self, x, state: SSMState):
+        """The state is split over the cache's batch axes and, on the
+        tensor-parallel axis, over its channels: each rank reads it
+        whole (all-gathered) and writes back its own slice."""
+        dm = x.device_mesh
+        spl, cpl = tuple(state.ssd.placements), tuple(state.conv.placements)
+        bpl = sd.batch_placements(state.ssd)
+        params = [sd.whole(p) for p in self._params()]
+        repl = (Replicate(),) * dm.ndim
+
+        def step(zx, ssd_all, conv_all, ssd_mine, conv_mine, *params):
+            h, ssd_new, conv_new = self._decode_mix(
+                zx, SSMState(ssd_all, conv_all), *params)
+            ssd_mine.copy_(sd.narrow(ssd_new, spl, dm, skip=(0,)))
+            conv_mine.copy_(sd.narrow(conv_new, cpl, dm, skip=(0,)))
+            return h
+
+        h = local_map(
+            step, out_placements=list(bpl),
+            in_placements=(bpl, bpl, bpl, spl, cpl) + (repl,) * 6,
+            device_mesh=dm, redistribute_inputs=True)(
+                self.in_proj(x), state.ssd, state.conv, state.ssd,
+                state.conv, *params)
+        return self.out_proj(h), state
 
 
 # logical axes of a layer's SSM state, mapped by the activation rules

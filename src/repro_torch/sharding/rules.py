@@ -22,7 +22,8 @@ or a tuple of axis names per dimension, which compares equal to
 `torch.distributed` process group or touches a device: the placements
 say which slice of each tensor a rank of a production mesh would hold
 (`NamedSharding.local_shape`), which is what `repro_torch.launch.specs`
-sums and materialises.
+sums and materialises; `repro_torch.sharding.dist` lays them over a
+live process group as DTensors.
 
 Param logical axes:
   embed                   d_model on params      -> FSDP axes (pod, data)
@@ -40,6 +41,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Any, Mapping, Optional, Sequence
+
+from torch.distributed.tensor import DTensor
 
 # logical axis -> mesh axes (tuple = joint sharding over several mesh axes)
 DEFAULT_PARAM_RULES: dict[str, Any] = {
@@ -166,10 +169,21 @@ def spec_for(
 
 
 def constrain(x, *logical):
-    """The identity.  The reference's `constrain` pins an activation's
-    sharding inside an active mesh; the port runs on one card with no
-    mesh, so there is nothing to pin."""
-    return x
+    """Pin an activation's placement by logical activation-axis names:
+    the reference's `with_sharding_constraint`.  A DTensor is
+    redistributed to the placements `DEFAULT_ACT_RULES` give it on its
+    own mesh; a plain tensor (every unsharded path) is returned as it
+    is."""
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding.dist import mesh_of, placements
+
+    mesh = mesh_of(x.device_mesh)
+    sh = NamedSharding(mesh, spec_for(logical, x.shape, mesh,
+                                      DEFAULT_ACT_RULES))
+    pl = placements(sh, x.dim())
+    return x if pl == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pl)
 
 
 def is_axes_leaf(x) -> bool:

@@ -83,9 +83,23 @@ def test_imports_neither_jax_nor_reference(path):
 
 
 @pytest.mark.parametrize("rel", ["client/fleet.py", "client/blackbox.py",
-                                 "serving/blackbox.py", "launch/serve.py"])
+                                 "serving/blackbox.py", "launch/serve.py",
+                                 "sharding/dist.py", "launch/dryrun.py"])
 def test_client_and_launcher_modules_are_checked(rel):
     assert PORT / rel in _port_files()
+
+
+def test_dist_registers_the_fake_backend_only_inside_fake_world():
+    """`sharding/dist.py` imports torch's test utility (which registers
+    the `fake` backend) inside `fake_world` alone, not at import."""
+    tree = ast.parse((PORT / "sharding" / "dist.py").read_text("utf-8"))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in top if isinstance(n, ast.ImportFrom)]
+    assert not any(m.startswith("torch.testing") for m in names), names
+    inner = [n for n in ast.walk(tree) if isinstance(n, ast.Import)
+             and any(a.name.startswith("torch.testing") for a in n.names)]
+    assert len(inner) == 1
 
 
 ZOO_MODULES = ["models/moe.py", "configs/arctic_480b.py",
