@@ -311,6 +311,25 @@ Phases:
      (the fake group leaves collective outputs undefined; the CPU tests
      hold them against four gloo ranks).  Every kernel's launch count 0
      across the phase.
+ 14. sync_free: the card's half of the lint's host-sync rule (RPL003,
+     `repro_torch.analysis`).  For every function of the lint manifest's
+     `sync-free` and `capture-candidates` lists, driven where its caller
+     calls it (`SYNC_FREE_RUNS`): one warm call, then SYNC_FREE_REPS
+     calls under `torch.cuda.set_sync_debug_mode("warn")`, counting the
+     warnings that name a synchronizing operation.  The windowed
+     `sim_tick` and the `schedule_batch` it calls at the scale runs'
+     width (W = 4096, B = 16, K = 2) with N = 10,000 requests arrived at
+     t = 0 (the scale runs' 100,000 cut in depth), launching
+     `sched_score_topb` (K+1) times a tick; the session's `_fused_tick`
+     inside `ClientSession.poll` at that width over `MockProvider` (the
+     poll's designed syncs lie outside it), and the whole poll, the
+     capture candidate; `decode_step` at StableLM-2-1.6B's published
+     width in bf16, 2 of its 24 layers, launching `decode_attention` a
+     layer a step.  Prints each function's static sites (file:line,
+     from the lint), runtime syncs, seconds and launches.  A `sync-free`
+     function must show neither; a capture candidate must show static
+     sites; `.item()` and the poll's summary pull, once a poll, must
+     count (the counter's own checks).
 """
 from __future__ import annotations
 
@@ -348,7 +367,8 @@ SELECTABLE = {"paper_cell": "phase_paper_cell", "tables": "phase_tables",
               "serve_zoo": "phase_serve_zoo",
               "serve_starcoder2": "phase_serve_starcoder2",
               "train": "phase_train", "dryrun": "phase_dryrun",
-              "dryrun_sharded": "phase_dryrun_sharded"}
+              "dryrun_sharded": "phase_dryrun_sharded",
+              "sync_free": "phase_sync_free"}
 
 
 def emit(**kw):
@@ -448,6 +468,9 @@ def main() -> None:
     trained = timed("train", phase_train)
     dry = timed("dryrun", phase_dryrun)
     dry_sharded = timed("dryrun_sharded", phase_dryrun_sharded)
+    synced = timed("sync_free", phase_sync_free)
+    for name, n in synced.items():
+        kernels[name]["launches"] += n
     emit(phase="seconds", **seconds)
 
     print(smi, flush=True)
@@ -460,7 +483,7 @@ def main() -> None:
           and session > 0 and fleet_session > 0 and fleet_session_scale > 0
           and served > 0 and deployed > 0 and served_ssm > 0
           and served_hybrid > 0 and served_zoo > 0
-          and served_starcoder2 > 0,
+          and served_starcoder2 > 0 and min(synced.values()) > 0,
           "main path launched no kernel")
     check(trained == 0, "training launched a kernel")
     check(dry == 0, "the dry run launched a kernel")
@@ -4251,6 +4274,219 @@ def phase_dryrun_sharded(torch, dev):
     return sum(launches.values())
 
 
+
+# ---------------------------------------------------------------------------
+# 14. sync_free: the lint's host-sync rule held on the card
+# ---------------------------------------------------------------------------
+
+SYNC_FREE_REPS = 5   # counted calls of each function, after one warm call
+# the scale runs' width (N arrived, W, B) with K = 2 classes; N is cut from
+# their 100,000 to 10,000 (a cut in depth: the window and batch are theirs)
+SYNC_FREE_SIM = (10_000, 4096, 16)
+SYNC_FREE_DECODE = ("stablelm-1.6b", 2, 37)   # arch, layers, prompt tokens
+
+
+def count_syncs(torch, fn):
+    """(result, syncs, seconds) of one call of `fn` under
+    `torch.cuda.set_sync_debug_mode("warn")`: the warnings that name a
+    synchronizing operation, and the seconds to the end of its device
+    work."""
+    import warnings
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return out, syncs, time.perf_counter() - t0
+
+
+class CountedCall:
+    """`fn`, counted where its caller calls it: the first call runs warm,
+    the next SYNC_FREE_REPS each under `count_syncs`, any later one
+    plainly."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn = torch, fn
+        self.calls, self.syncs, self.seconds = 0, 0, 0.0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        if not 1 < self.calls <= 1 + SYNC_FREE_REPS:
+            return self.fn(*args, **kwargs)
+        out, n, secs = count_syncs(self.torch,
+                                   lambda: self.fn(*args, **kwargs))
+        self.syncs += n
+        self.seconds += secs
+        return out
+
+
+def sync_free_sim(torch, dev, patch):
+    """The windowed engine at SYNC_FREE_SIM, every request arrived at t =
+    0, for 1 + SYNC_FREE_REPS ticks, with `patch` (a name of
+    `repro_torch.sim.engine`: `sim_tick`, or `schedule_batch` as the
+    tick calls it) counted.  Returns (counted call, sched_score_topb
+    launches)."""
+    from repro_torch.core.policy import strategy
+    from repro_torch.core.types import COMPLETED
+    from repro_torch.kernels.sched_score import ops
+    from repro_torch.sim import (SimConfig, WorkloadConfig, default_physics,
+                                 engine, generate, run_sim)
+
+    n, w, b = SYNC_FREE_SIM
+    wl = WorkloadConfig(n_requests=n, mix="balanced", congestion="high",
+                        arrival_scale=n / 160, class_map="paper2")
+    batch, jitter = generate(wl, torch.Generator().manual_seed(0),
+                             device=dev)
+    batch = batch._replace(arrival_ms=torch.zeros_like(batch.arrival_ms))
+    counted = CountedCall(torch, getattr(engine, patch))
+    setattr(engine, patch, counted)
+    ops.reset_launches()
+    try:
+        final = run_sim(strategy("final_adrr_olc"), batch, jitter,
+                        default_physics(),
+                        SimConfig(n_ticks=1 + SYNC_FREE_REPS, k_slots=b,
+                                  window=w), device=dev)
+    finally:
+        setattr(engine, patch, counted.fn)
+    check(bool((final.req.status == COMPLETED).any()),
+          f"sync_free: nothing completed in the {patch} run")
+    return counted, ops.LAUNCHES["sched_score_topb"]
+
+
+def sync_free_session(torch, dev, patch):
+    """A `ClientSession` at SYNC_FREE_SIM's width over `MockProvider`
+    (`scale_session`), polled 1 + SYNC_FREE_REPS times with `patch`
+    counted: the `_fused_tick` the poll calls (the poll's designed syncs
+    lie outside it), or the whole `poll`, whose summary pull the
+    counter must count once a poll (its check on the real path).
+    Returns (counted call, sched_score_topb launches)."""
+    from repro_torch.client import session as session_mod
+    from repro_torch.kernels.sched_score import ops
+
+    n, w, b = SYNC_FREE_SIM
+    sess = scale_session(torch, dev, n, w, b)
+    owner = sess if patch == "poll" else session_mod
+    counted = CountedCall(torch, getattr(owner, patch))
+    setattr(owner, patch, counted)
+    ops.reset_launches()
+    try:
+        for _ in range(1 + SYNC_FREE_REPS):
+            sess.poll()
+    finally:
+        setattr(owner, patch, counted.fn)
+    check(sess.stats.n_admitted > 0, "sync_free: the session admitted "
+          "nothing")
+    if patch == "poll":
+        check(counted.syncs >= SYNC_FREE_REPS,
+              f"sync_free: {SYNC_FREE_REPS} polls counted {counted.syncs} "
+              f"syncs; each pulls its summary")
+    return counted, ops.LAUNCHES["sched_score_topb"]
+
+
+def sync_free_decode(torch, dev):
+    """`decode_step` at SYNC_FREE_DECODE (published width, bf16, depth
+    cut), after a seeded prefill, 1 + SYNC_FREE_REPS steps.  Returns
+    (counted call, decode_attention launches)."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.models import decode_step, init_model, prefill
+
+    arch, layers, s = SYNC_FREE_DECODE
+    cfg = dataclasses.replace(get(arch), n_layers=layers)
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    prompt = torch.randint(0, cfg.vocab, (1, s),
+                           generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    logits, caches = prefill(model, prompt, s + 1 + SYNC_FREE_REPS)
+    counted = CountedCall(torch, decode_step)
+    ops.reset_launches()
+    for i in range(1 + SYNC_FREE_REPS):
+        tok = logits[:, -1:].argmax(-1)
+        logits, caches = counted(model, tok, s + i, caches)
+    check(bool(torch.isfinite(logits).all()), "sync_free: decode_step "
+          "gave non-finite logits")
+    launches = ops.LAUNCHES["decode_attention"]
+    del model, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted, launches
+
+
+# each manifest function, by its qualified name: how the phase drives it
+SYNC_FREE_RUNS = {
+    "repro_torch.sim.engine.sim_tick":
+        lambda torch, dev: sync_free_sim(torch, dev, "sim_tick"),
+    "repro_torch.core.scheduler.schedule_batch":
+        lambda torch, dev: sync_free_sim(torch, dev, "schedule_batch"),
+    "repro_torch.client.session._fused_tick":
+        lambda torch, dev: sync_free_session(torch, dev, "_fused_tick"),
+    "repro_torch.client.session.ClientSession.poll":
+        lambda torch, dev: sync_free_session(torch, dev, "poll"),
+    "repro_torch.models.model.decode_step": sync_free_decode,
+}
+SYNC_FREE_KERNEL = {"repro_torch.models.model.decode_step": "decode_attention"}
+
+
+def phase_sync_free(torch, dev):
+    """Phase 14 (module docstring).  Returns the launches by kernel."""
+    from repro_torch.analysis.lint import build_project
+    from repro_torch.analysis.rules.rpl003_hostsync import sites_of
+
+    t0 = time.perf_counter()
+    project = build_project(ROOT, [ROOT / "src" / "repro_torch"])
+    man = project.manifest
+    static = {name: [f"{f.path}:{f.line}" for f in sites_of(project, name)]
+              for name in (*man.sync_free, *man.capture_candidates)}
+    lint_s = time.perf_counter() - t0
+    missing = set(static) - set(SYNC_FREE_RUNS)
+    check(not missing, f"sync_free: no run for manifest functions "
+          f"{sorted(missing)}")
+    # the counter itself: a read-back must count
+    _, control, _ = count_syncs(
+        torch, lambda: torch.ones(4, device=dev).sum().item())
+    check(control >= 1, "sync_free: `.item()` counted no sync; the "
+          "runtime count cannot be trusted")
+    rows, launches = [], {"sched_score_topb": 0, "decode_attention": 0}
+    for name, sites in static.items():
+        counted, n = SYNC_FREE_RUNS[name](torch, dev)
+        kernel = SYNC_FREE_KERNEL.get(name, "sched_score_topb")
+        launches[kernel] += n
+        kind = "sync-free" if name in man.sync_free else "capture-candidate"
+        rows.append(dict(function=name, kind=kind, static_sites=sites,
+                         calls=counted.calls, counted_calls=SYNC_FREE_REPS,
+                         runtime_syncs=counted.syncs,
+                         seconds=counted.seconds, kernel=kernel,
+                         launches=n))
+        check(counted.calls == 1 + SYNC_FREE_REPS,
+              f"sync_free: {name} ran {counted.calls} times, want "
+              f"{1 + SYNC_FREE_REPS}")
+        check(n > 0, f"sync_free: {name} launched no {kernel}")
+        if kind == "sync-free":
+            check(not sites, f"sync_free: the lint finds host syncs in "
+                  f"sync-free {name}: {sites}")
+            check(counted.syncs == 0,
+                  f"sync_free: sync-free {name} synced {counted.syncs} "
+                  f"times in {SYNC_FREE_REPS} calls on the card")
+        else:
+            check(sites, f"sync_free: the lint finds no host sync in "
+                  f"capture candidate {name}; it belongs in sync-free")
+    for row in rows:
+        emit(phase="sync_free_function", **row)
+    emit(phase="sync_free", functions=len(rows), reps=SYNC_FREE_REPS,
+         control_syncs=control, lint_seconds=lint_s,
+         n_arrived=SYNC_FREE_SIM[0], window=SYNC_FREE_SIM[1],
+         max_grants=SYNC_FREE_SIM[2], decode=SYNC_FREE_DECODE,
+         kernel_launches=launches)
+    return launches
+
 TRACE_STEPS = 8   # decode steps traced with torch.profiler
 
 
@@ -4264,7 +4500,8 @@ def trace_decode(torch, model, decode_step, prefill, sc, prompt, dev,
     tok = x[:, -1:]
     pos = x.shape[1] + (0 if prefix_embeds is None else
                         prefix_embeds.shape[1])
-    decode_step(model, tok, pos, caches)   # not traced: warms the path
+    # not traced: warms the path
+    _, caches = decode_step(model, tok, pos, caches)
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
@@ -4272,7 +4509,7 @@ def trace_decode(torch, model, decode_step, prefill, sc, prompt, dev,
     prof.start()
     t0 = time.perf_counter()
     for i in range(TRACE_STEPS):
-        decode_step(model, tok, pos + 1 + i, caches)
+        _, caches = decode_step(model, tok, pos + 1 + i, caches)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
     prof.stop()

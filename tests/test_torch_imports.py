@@ -14,6 +14,8 @@
   `repro_torch.sim`), and its entry points run on CUDA by default too.
 * `params_from_jax` refuses a parameter tree that does not fit the
   config.
+* The port's lint (`repro_torch.analysis`) is checked as every other
+  module is (`ANALYSIS_MODULES`).
 * Every kernel package of the port ships its CUDA source, a plain
   `ref.py` with `*_ref` functions, a wrapper (`ops.py`) that refuses
   inputs needing a gradient (`_build.refuse_autograd`: the kernels are
@@ -122,6 +124,22 @@ TRAINING_MODULES = ["training/adamw.py", "training/train_step.py",
 def test_training_modules_are_checked(rel):
     assert PORT / rel in _port_files()
     assert ROOT / "tools" / "train_100m.py" in _port_files()
+
+
+ANALYSIS_MODULES = [
+    "analysis/__init__.py", "analysis/walker.py", "analysis/registry.py",
+    "analysis/manifest.py", "analysis/lint.py", "analysis/docs_check.py",
+    "analysis/rules/__init__.py", "analysis/rules/rpl001_pinned.py",
+    "analysis/rules/rpl002_donation.py", "analysis/rules/rpl003_hostsync.py",
+    "analysis/rules/rpl004_static_args.py", "analysis/rules/rpl005_kernels.py",
+    "analysis/rules/rpl006_imports.py"]
+
+
+@pytest.mark.parametrize("rel", ANALYSIS_MODULES)
+def test_analysis_modules_are_checked(rel):
+    """The port's lint is a port module like any other: it imports
+    neither jax nor the reference (whose lint it mirrors)."""
+    assert PORT / rel in _port_files()
 
 
 def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
