@@ -1,0 +1,10 @@
+"""`mlp_ms.prefill`: the device ms a call of the port's `block.mlp`
+spans (each layer's two or three MLP products and their activation):
+for each span, the busy union of the device operations launched inside
+it, read from the trace; summed over the layers and averaged over the
+window's whole cycles of lengths."""
+from portbench.harness.spans import device_ms_a_call
+
+
+def read(run):
+    return device_ms_a_call(run, "block.mlp")

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention import Attention, KVCache
 from repro_torch.models.mlp import MLP
@@ -100,9 +101,12 @@ class Block(nn.Module):
             return x, None
         h = self.norm2(x)
         if self.moe is not None:
-            y, aux = self.moe(h)
+            with tracing.span("block.moe"):
+                y, aux = self.moe(h)
             return x + _pin(y), aux
-        return x + _pin(self.mlp(h)), None
+        with tracing.span("block.mlp"):
+            y = self.mlp(h)
+        return x + _pin(y), None
 
     def forward(self, x, positions, window: int, impl: str = "kernel"):
         """Full block over a sequence: serving's prefill and, with
@@ -113,11 +117,13 @@ class Block(nn.Module):
         if self.kind == "ssm":
             mix, st = self.ssm.prefill(h, impl)
         elif self.kind == "hybrid":
-            a, kv = self.attn.prefill(h, positions, window, impl)
+            with tracing.span("block.attention"):
+                a, kv = self.attn.prefill(h, positions, window, impl)
             s, st = self.ssm.prefill(h, impl)
             mix = self._fuse(a, s)
         else:
-            mix, kv = self.attn.prefill(h, positions, window, impl)
+            with tracing.span("block.attention"):
+                mix, kv = self.attn.prefill(h, positions, window, impl)
         x, aux = self._channel_mix(x + _pin(mix))
         return x, kv, st, aux
 
@@ -128,9 +134,13 @@ class Block(nn.Module):
         if self.kind == "ssm":
             mix, _ = self.ssm.decode(h, cache.ssm)
         elif self.kind == "hybrid":
-            a, _ = self.attn.decode(h, pos, cache.kv, window, valid, impl)
+            with tracing.span("block.attention"):
+                a, _ = self.attn.decode(h, pos, cache.kv, window, valid,
+                                        impl)
             s, _ = self.ssm.decode(h, cache.ssm)
             mix = self._fuse(a, s)
         else:
-            mix, _ = self.attn.decode(h, pos, cache.kv, window, valid, impl)
+            with tracing.span("block.attention"):
+                mix, _ = self.attn.decode(h, pos, cache.kv, window, valid,
+                                          impl)
         return self._channel_mix(x + _pin(mix))[0], cache

@@ -50,6 +50,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.config import ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.attention import (
@@ -266,6 +267,11 @@ def prefill(model: Model, tokens, max_seq: int, impl: str = "kernel",
     """Run the prompt (B, S_txt), after `prefix_embeds` (B, prefix_len,
     d_model) when given: returns (last-position logits (B, 1, V)
     float32, decode caches holding prefix and text)."""
+    with tracing.span("model.prefill"):
+        return _prefill(model, tokens, max_seq, impl, prefix_embeds)
+
+
+def _prefill(model: Model, tokens, max_seq: int, impl: str, prefix_embeds):
     cfg = model.cfg
     h, positions = _embed(model, tokens, prefix_embeds=prefix_embeds)
     S = h.shape[1]
@@ -297,8 +303,13 @@ def decode_step(model: Model, token, pos: int, caches: list[LayerCache],
     host int, so the step needs no read-back); caches: as `prefill`
     returns them, updated in place.  Returns (logits (B, 1, V) float32,
     caches)."""
+    with tracing.span("model.decode_step"):
+        return _decode_step(model, token, int(pos), caches, impl)
+
+
+def _decode_step(model: Model, token, pos: int, caches: list[LayerCache],
+                 impl: str):
     cfg = model.cfg
-    pos = int(pos)
     h, _ = _embed(model, token, pos)
     valid = {}  # one mask per (window, cache length), shared by the layers
     for i, (blk, cache) in enumerate(zip(model.blocks, caches)):

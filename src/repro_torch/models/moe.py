@@ -44,6 +44,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import tracing
 from repro_torch.config import ModelConfig
 from repro_torch.models.common import Dense, param
 from repro_torch.models.mlp import MLP
@@ -189,6 +190,12 @@ class MoE(nn.Module):
         y = self._combine(r, out, r.keep, row, x.dtype)
         if self.residual is not None:
             y = y + self.residual(xt)
+        if tracing.enabled():
+            # the experts whose products ran (all E: the buffer holds
+            # every expert) and, on the device, those the slots chose
+            # (each chosen expert's first sorted slot has rank 0)
+            tracing.count("moe.experts_run", E)
+            tracing.count("moe.experts_chosen", (r.rank == 0).sum())
         return y.reshape(B, S, d), aux
 
     # --- a sharded step ------------------------------------------------

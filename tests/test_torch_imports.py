@@ -165,6 +165,16 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert len(losses) == 1
 
 
+TRACING_MODULES = ["tracing.py", "models/model.py", "models/blocks.py",
+                   "models/moe.py"]
+
+
+@pytest.mark.parametrize("rel", TRACING_MODULES)
+def test_tracing_modules_are_checked(rel):
+    """The spans' module and the modules that open them."""
+    assert PORT / rel in _port_files()
+
+
 DRYRUN_MODULES = ["sharding/__init__.py", "sharding/rules.py",
                   "launch/mesh.py", "launch/specs.py", "launch/dryrun.py"]
 
